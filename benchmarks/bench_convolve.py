@@ -2,11 +2,12 @@
 """Batched convolution ("folds") benchmark.
 
 Replaces bench_cpu_many_nd_folds / bench_gpu_many_nd_folds
-(/root/reference/bench/bench_cpu_many_nd_folds.cpp:90-93,
+(reference bench/bench_cpu_many_nd_folds.cpp:90-93,
 bench_gpu_many_nd_folds.cu:300-360): N stacks convolved by a PSF with the
 kernel pre-forwarded (the half_inplace fast path) — here one batched
-spectrum multiply; ``--engine direct`` additionally benches the MXU stencil
-path, the TPU-only alternative the reference cannot express.
+spectrum multiply; ``--engine dft`` benches the dense-DFT engine and
+``--engine direct`` the spatial stencil path, an alternative the
+reference cannot express.
 """
 
 import sys
@@ -20,18 +21,18 @@ def main(argv=None):
     p = base_parser("batched 3D convolution (folds) benchmark")
     p.add_argument("-n", "--num_stacks", type=int, default=8)
     p.add_argument("-k", "--kernel_dims", type=parse_dims, default=(21, 21, 21))
-    p.add_argument("--engine", choices=["fft", "dft", "fused", "direct"],
+    p.add_argument("--engine", choices=["fft", "dft", "direct"],
                    default="fft")
     args = p.parse_args(argv)
     jax = setup_platform(args.platform)
     import numpy as np
 
-    from libmultiviewnative_tpu.core.convolve import (
+    from libmultiviewnative_jax.core.convolve import (
         convolve_spectrum,
         direct_convolve3d,
     )
-    from libmultiviewnative_tpu.core.fft import forward_kernel_spectrum
-    from libmultiviewnative_tpu.utils.synthetic import gaussian_kernel
+    from libmultiviewnative_jax.core.fft import forward_kernel_spectrum
+    from libmultiviewnative_jax.utils.synthetic import gaussian_kernel
 
     rng = np.random.default_rng(0)
     stacks = jax.device_put(
@@ -47,27 +48,13 @@ def main(argv=None):
         )
         fn = jax.jit(lambda x: convolve_spectrum(x, k_hat))
     elif args.engine == "dft":
-        from libmultiviewnative_tpu.core.dft import (
+        from libmultiviewnative_jax.core.dft import (
             dft_convolve_spectrum,
             kernel_spectrum_split,
         )
 
         kre, kim = kernel_spectrum_split(kernel, tuple(args.stack_dims))
         fn = jax.jit(lambda x: dft_convolve_spectrum(x, kre, kim))
-    elif args.engine == "fused":
-        import jax.numpy as jnp
-
-        from libmultiviewnative_tpu.ops.pallas.fused_dft2 import (
-            fused_convolve_spectrum,
-            kernel_spectrum_fused,
-        )
-
-        interp = jax.default_backend() == "cpu"
-        kre2, kim2 = kernel_spectrum_fused(kernel, tuple(args.stack_dims))
-        one = jax.jit(
-            lambda x: fused_convolve_spectrum(x, kre2, kim2, interpret=interp)
-        )
-        fn = jax.jit(lambda xs: jnp.stack([one(xs[i]) for i in range(args.num_stacks)]))
     else:
         fn = jax.jit(lambda x: direct_convolve3d(x, kernel, mode="circular"))
 

@@ -2,12 +2,13 @@
 """Synthetic multi-view RL deconvolution benchmark.
 
 Replaces bench_cpu_deconvolve_synthetic / bench_gpu_deconvolve_synthetic
-(/root/reference/bench/bench_cpu_deconvolve_synthetic.cpp:55-165,
+(reference bench/bench_cpu_deconvolve_synthetic.cpp:55-165,
 bench_gpu_deconvolve_synthetic.cu:81-229): default workload 6 views,
 kernels 21^3/25^3, 10 RL iterations on the given volume.  The reference's
 GPU execution modes all_on_device/interleaved become ``--view_order
-{sequential,simultaneous}`` and ``--engine {fft,direct}`` — the strategy
-axes that exist on TPU.  ``--sharded VxZ`` runs the mesh-parallel driver.
+{sequential,simultaneous}`` and ``--engine {fft,dft,direct,auto}`` — the
+strategy axes of this library.  ``--sharded VxZ`` runs the mesh-parallel
+driver.
 """
 
 import sys
@@ -27,25 +28,24 @@ def main(argv=None):
     p.add_argument("--lambda_", type=float, default=0.006)
     p.add_argument("--view_order", choices=["sequential", "simultaneous"],
                    default="sequential")
-    p.add_argument("--engine", choices=["fft", "dft", "fused", "direct"], default="fft")
+    p.add_argument("--engine", choices=["fft", "dft", "direct", "auto"], default="fft")
     p.add_argument("--sharded", default=None,
                    help="VxZ mesh, e.g. 2x4 (requires that many devices)")
     p.add_argument("--uniform_weights", action="store_true",
-                   help="per-view scalar weights 1/V (no weight stacks in HBM)")
+                   help="per-view scalar weights 1/V (no weight stacks on the device)")
     p.add_argument("--adjoint_kernel2", action="store_true",
                    help="kernel2 = flip(kernel1): reuse conj spectra")
-    p.add_argument("--elementwise", choices=["jnp", "pallas"], default="jnp")
     args = p.parse_args(argv)
     jax = setup_platform(args.platform)
     import jax.numpy as jnp
     import numpy as np
 
-    from libmultiviewnative_tpu.deconv.rl import deconvolve_jit
-    from libmultiviewnative_tpu.deconv.workspace import (
+    from libmultiviewnative_jax.deconv.rl import deconvolve_jit
+    from libmultiviewnative_jax.deconv.workspace import (
         Workspace,
         initial_psi,
     )
-    from libmultiviewnative_tpu.utils.synthetic import multiview_data
+    from libmultiviewnative_jax.utils.synthetic import multiview_data
 
     views = multiview_data(
         args.num_views,
@@ -57,7 +57,7 @@ def main(argv=None):
     ws = Workspace.from_views(views, lambda_=args.lambda_,
                               num_iterations=args.iterations)
     if args.uniform_weights:
-        from libmultiviewnative_tpu.deconv.workspace import MultiViewData
+        from libmultiviewnative_jax.deconv.workspace import MultiViewData
 
         ws.data = MultiViewData(
             views=ws.data.views,
@@ -68,12 +68,12 @@ def main(argv=None):
     psi0 = jax.block_until_ready(initial_psi(ws.data, "average"))
 
     if args.sharded:
-        if args.adjoint_kernel2 or args.elementwise != "jnp":
-            p.error("--sharded does not support --adjoint_kernel2/--elementwise")
-        if args.engine not in ("fft", "dft"):
-            p.error("--sharded supports --engine fft or dft")
+        if args.adjoint_kernel2:
+            p.error("--sharded does not support --adjoint_kernel2")
+        if args.engine not in ("fft", "dft", "auto"):
+            p.error("--sharded supports --engine fft, dft or auto")
         vp, zp = (int(t) for t in args.sharded.lower().split("x"))
-        from libmultiviewnative_tpu.parallel.sharded import (
+        from libmultiviewnative_jax.parallel.sharded import (
             deconvolve_sharded_jit,
             make_mesh,
             shard_workspace,
@@ -100,7 +100,6 @@ def main(argv=None):
                 view_order=args.view_order,
                 algorithm=args.engine,
                 adjoint_kernel2=args.adjoint_kernel2,
-                elementwise=args.elementwise,
             )
 
     total_ms = time_fn(fn, args.repeats, args.warmup)

@@ -35,7 +35,7 @@ def main(argv=None):
     import jax.numpy as jnp
     import numpy as np
 
-    from libmultiviewnative_tpu.core.fft import irfft3, rfft3
+    from libmultiviewnative_jax.core.fft import irfft3, rfft3
 
     shape = (args.num_stacks,) + tuple(args.stack_dims)
     host = np.random.default_rng(0).normal(size=shape).astype(np.float32)

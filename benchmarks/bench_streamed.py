@@ -3,14 +3,14 @@
 
 The reference benchmarks its out-of-core strategy as the interleaved
 mode (bench/bench_gpu_deconvolve_synthetic.cu --mode interleaved).  The
-TPU build has two rungs below in-core, both measured here:
+library has two rungs below in-core, both measured here:
 
   --mode interleaved  psi device-resident, only views/weights stream in
                       z-chunks (deconv/interleaved.py — the reference
                       design point: ~V*S host->device bytes/iteration);
   --mode streamed     psi itself chunked through the device with the
                       bounded in-flight pipeline (deconv/streamed.py —
-                      psi > HBM territory; ~(5V+2)*S bytes/iteration).
+                      psi > device-memory territory; ~(5V+2)*S bytes/iteration).
 
 Emits the standard logging row plus iterations/s.
 
@@ -36,7 +36,7 @@ def main():
     p.add_argument("--chunk-z", default="auto",
                    help="int or 'auto' (engine-friendly extended extent)")
     p.add_argument("--algorithm", default="auto",
-                   choices=["fft", "dft", "fused", "direct", "auto"])
+                   choices=["fft", "dft", "direct", "auto"])
     p.add_argument("--mode", default="streamed",
                    choices=["streamed", "interleaved"])
     p.add_argument("--scalar-weights", action="store_true",
@@ -47,9 +47,9 @@ def main():
         args.chunk_z = int(args.chunk_z)
     setup_platform(args.platform)
 
-    from libmultiviewnative_tpu.deconv.interleaved import deconvolve_interleaved
-    from libmultiviewnative_tpu.deconv.streamed import deconvolve_streamed
-    from libmultiviewnative_tpu.utils.synthetic import gaussian_kernel
+    from libmultiviewnative_jax.deconv.interleaved import deconvolve_interleaved
+    from libmultiviewnative_jax.deconv.streamed import deconvolve_streamed
+    from libmultiviewnative_jax.utils.synthetic import gaussian_kernel
 
     Z, Y, X = args.stack_dims
     V = args.views

@@ -1,10 +1,11 @@
 #!/usr/bin/env python
 """Sweep driver: run a bench over a dims ladder × mode matrix.
 
-Replaces the reference tooling layer (/root/reference/python/sweep_gpu.py:125-196
+Replaces the reference tooling layer (reference python/sweep_gpu.py:125-196
 and generate_dims.py:4-48): generates the same power-of-2 anisotropic dims
-ladder, crosses it with per-bench mode matrices, runs each config in-process,
-and appends rows to a .data file.  nvprof wrapping becomes the
+ladder, crosses it with per-bench mode matrices, runs each config in-process
+(one process per card: a second JAX process on the card would find its
+memory already reserved), and appends rows to a .data file.  nvprof wrapping becomes the
 LMVN_PROFILE_DIR jax.profiler hook (utils/trace.py).
 """
 
@@ -48,13 +49,10 @@ MODE_MATRIX = {
         ["--view_order", "sequential"],
         ["--view_order", "simultaneous"],
     ],
-    # round-2 engine ladder: the three in-core engines head-to-head
-    # (fused only lowers on a real TPU and needs axes %8 / even X —
-    # eligible everywhere on the 2^n dims ladder)
+    # engine ladder: the in-core spectral engines head-to-head
     "engines": [
         ["--engine", "fft"],
         ["--engine", "dft"],
-        ["--engine", "fused"],
     ],
 }
 MODE_BENCH = {"engines": "deconvolve"}  # alias matrices -> bench CLI

@@ -14,14 +14,14 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import libmultiviewnative_tpu as mvn
-from libmultiviewnative_tpu.io import write_tiff_stack
-from libmultiviewnative_tpu.models import RichardsonLucy, WienerFilter
-from libmultiviewnative_tpu.reference.numpy_ref import (
+import libmultiviewnative_jax as mvn
+from libmultiviewnative_jax.io import write_tiff_stack
+from libmultiviewnative_jax.models import RichardsonLucy, WienerFilter
+from libmultiviewnative_jax.reference.numpy_ref import (
     np_convolve_spectrum,
     np_wrap_kernel,
 )
-from libmultiviewnative_tpu.utils.synthetic import gaussian_kernel
+from libmultiviewnative_jax.utils.synthetic import gaussian_kernel
 
 
 def main():

@@ -17,16 +17,16 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from libmultiviewnative_tpu.deconv.rl import (
+from libmultiviewnative_jax.deconv.rl import (
     deconvolve_prepared,
     prepare_workspace,
 )
-from libmultiviewnative_tpu.deconv.workspace import MultiViewData, initial_psi
-from libmultiviewnative_tpu.reference.numpy_ref import (
+from libmultiviewnative_jax.deconv.workspace import MultiViewData, initial_psi
+from libmultiviewnative_jax.reference.numpy_ref import (
     np_convolve_spectrum,
     np_wrap_kernel,
 )
-from libmultiviewnative_tpu.utils.synthetic import gaussian_kernel
+from libmultiviewnative_jax.utils.synthetic import gaussian_kernel
 
 
 def main():

@@ -9,8 +9,9 @@ ended at one device's memory.  On a z-only mesh the z-decomposition
 lives INSIDE each view step (overlap-save ring halos, exact for the
 circular boundary), so the exact reference math scales across devices.
 
-This example runs on 8 virtual CPU devices; on a real pod the same code
-runs over ICI (set --platform accordingly / initialize jax.distributed).
+This example runs on 8 virtual CPU devices; on several GPUs the same code
+runs over their interconnect (set --platform accordingly / initialize
+jax.distributed for several processes).
 
 Run:  python examples/sequential_zmesh.py [--size 32] [--zshards 4]
 """
@@ -40,14 +41,14 @@ def main():
 
     import jax.numpy as jnp
 
-    from libmultiviewnative_tpu.deconv.rl import deconvolve_jit
-    from libmultiviewnative_tpu.deconv.workspace import MultiViewData
-    from libmultiviewnative_tpu.parallel.sharded import (
+    from libmultiviewnative_jax.deconv.rl import deconvolve_jit
+    from libmultiviewnative_jax.deconv.workspace import MultiViewData
+    from libmultiviewnative_jax.parallel.sharded import (
         deconvolve_sharded_jit,
         make_mesh,
         shard_workspace,
     )
-    from libmultiviewnative_tpu.utils.synthetic import gaussian_kernel
+    from libmultiviewnative_jax.utils.synthetic import gaussian_kernel
 
     shape = (args.size,) * 3
     rng = np.random.default_rng(0)

@@ -1,21 +1,21 @@
-/* bridge.cpp — native runtime host for the TPU deconvolution engine.
+/* bridge.cpp — native runtime host for the JAX deconvolution engine.
  *
  * The reference implements its C ABI with FFTW/cuFFT C++ underneath
- * (/root/reference/src/multiviewnative.cpp, multiviewnative.cu).  The
- * TPU-native equivalent keeps the same ABI but hosts an embedded CPython
- * interpreter whose process owns the XLA/TPU runtime: this file handles
+ * (reference src/multiviewnative.cpp, multiviewnative.cu).  This
+ * equivalent keeps the same ABI but hosts an embedded CPython
+ * interpreter whose process owns the XLA runtime: this file handles
  * interpreter lifecycle, GIL discipline, and zero-copy address marshaling;
- * libmultiviewnative_tpu/native_entry.py wraps the raw pointers as numpy
+ * libmultiviewnative_jax/native_entry.py wraps the raw pointers as numpy
  * arrays (in place) and dispatches into the JAX engine.
  *
  * Threading: every entry point is safe to call from arbitrary native
  * threads (PyGILState_Ensure).  Errors never cross the ABI: they are
- * recorded for mvn_tpu_last_error() and printed to stderr, and outputs are
+ * recorded for mvn_jax_last_error() and printed to stderr, and outputs are
  * left untouched (the reference's error style is exit(); we prefer to keep
  * the host JVM alive).
  */
 
-#include "../include/multiviewnative_tpu.h"
+#include "../include/multiviewnative_jax.h"
 
 #include <Python.h>
 
@@ -30,7 +30,7 @@ std::mutex g_init_mutex;
 bool g_we_initialized = false;
 std::mutex g_error_mutex;
 std::string g_last_error;
-/* stable buffer returned by mvn_tpu_last_error (the std::string may be
+/* stable buffer returned by mvn_jax_last_error (the std::string may be
  * reallocated by a concurrent writer; callers get a snapshot) */
 char g_error_snapshot[1024];
 
@@ -39,7 +39,7 @@ void set_last_error(const std::string& msg) {
     std::lock_guard<std::mutex> lock(g_error_mutex);
     g_last_error = msg;
   }
-  std::fprintf(stderr, "[multiviewnative_tpu] %s\n", msg.c_str());
+  std::fprintf(stderr, "[multiviewnative_jax] %s\n", msg.c_str());
 }
 
 /* Ensure an interpreter exists.  If this library is loaded INTO a Python
@@ -96,12 +96,12 @@ void record_py_error(const char* where) {
   PyErr_Print();
 }
 
-/* Call libmultiviewnative_tpu.native_entry.<fn>(*args). Steals args ref.
+/* Call libmultiviewnative_jax.native_entry.<fn>(*args). Steals args ref.
  * Returns the result object (new ref) or nullptr. */
 PyObject* call_entry(const char* fn, PyObject* args) {
-  PyObject* mod = PyImport_ImportModule("libmultiviewnative_tpu.native_entry");
+  PyObject* mod = PyImport_ImportModule("libmultiviewnative_jax.native_entry");
   if (!mod) {
-    record_py_error("import libmultiviewnative_tpu.native_entry");
+    record_py_error("import libmultiviewnative_jax.native_entry");
     Py_XDECREF(args);
     return nullptr;
   }
@@ -131,9 +131,9 @@ inline unsigned long long addr(const void* p) {
 
 extern "C" {
 
-int mvn_tpu_initialize(void) { return ensure_python(); }
+int mvn_jax_initialize(void) { return ensure_python(); }
 
-void mvn_tpu_finalize(void) {
+void mvn_jax_finalize(void) {
   std::lock_guard<std::mutex> lock(g_init_mutex);
   if (g_we_initialized && Py_IsInitialized()) {
     PyGILState_Ensure();
@@ -142,7 +142,7 @@ void mvn_tpu_finalize(void) {
   }
 }
 
-const char* mvn_tpu_last_error(void) {
+const char* mvn_jax_last_error(void) {
   std::lock_guard<std::mutex> lock(g_error_mutex);
   std::snprintf(g_error_snapshot, sizeof(g_error_snapshot), "%s",
                 g_last_error.c_str());
@@ -340,7 +340,7 @@ int selectDeviceWithHighestComputeCapability(void) {
   return n;
 }
 
-/* Compute-capability queries have no TPU meaning; report 0.0 (the
+/* Compute-capability queries are not forwarded; report 0.0 (the
  * reference returns the CUDA properties, inc/cuda_helpers.cuh:70-82). */
 int getCUDAcomputeCapabilityMajorVersion(int device) {
   (void)device;

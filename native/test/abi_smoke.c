@@ -6,7 +6,7 @@
  * (/root/reference/tests/test_cpu_asymm_convolve.cpp's C-ABI calls).
  * Run with PYTHONPATH pointing at the repo root.
  */
-#include "../include/multiviewnative_tpu.h"
+#include "../include/multiviewnative_jax.h"
 
 #include <math.h>
 #include <stdio.h>
@@ -32,8 +32,8 @@ static void fill_gaussian(float* k) {
 }
 
 int main(void) {
-  if (mvn_tpu_initialize() != 0) {
-    fprintf(stderr, "init failed: %s\n", mvn_tpu_last_error());
+  if (mvn_jax_initialize() != 0) {
+    fprintf(stderr, "init failed: %s\n", mvn_jax_last_error());
     return 1;
   }
   char name[256];
@@ -97,7 +97,7 @@ int main(void) {
   for (int i = 0; i < VOL; ++i) err += fabs(im2[i] - (double)i);
   printf("identity convolution L1 err=%.5f\n", err / VOL);
 
-  mvn_tpu_finalize();
+  mvn_jax_finalize();
   printf("OK\n");
   return 0;
 }

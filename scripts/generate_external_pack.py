@@ -36,14 +36,14 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from libmultiviewnative_tpu.io.stacks import write_shape_sidecar, write_tiff_stack
-from libmultiviewnative_tpu.reference.numpy_ref import (
+from libmultiviewnative_jax.io.stacks import write_shape_sidecar, write_tiff_stack
+from libmultiviewnative_jax.reference.numpy_ref import (
     np_convolve_spectrum,
     np_deconvolve,
     np_wrap_kernel,
 )
-from libmultiviewnative_tpu.utils.psf import compound_kernels
-from libmultiviewnative_tpu.utils.synthetic import gaussian_kernel
+from libmultiviewnative_jax.utils.psf import compound_kernels
+from libmultiviewnative_jax.utils.synthetic import gaussian_kernel
 
 NUM_VIEWS = 6
 SHAPE = (44, 40, 36)  # anisotropic; >= 7-plane quiet border on every face

@@ -4,7 +4,7 @@
 Replaces the reference's external Fiji-produced TIFF fixture pack
 (/root/reference/tests/tiff_fixtures.hpp:18-27, default path
 /dev/shm/libmultiview_data) with goldens produced by the trusted float64
-numpy mirror (libmultiviewnative_tpu.reference.numpy_ref) and frozen under
+numpy mirror (libmultiviewnative_jax.reference.numpy_ref) and frozen under
 tests/data/ — the plan SURVEY.md §7 "golden data absence" prescribes.
 
 Contract mirrored from the reference pack:
@@ -24,12 +24,12 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from libmultiviewnative_tpu.reference.numpy_ref import (
+from libmultiviewnative_jax.reference.numpy_ref import (
     np_convolve_spectrum,
     np_deconvolve,
     np_wrap_kernel,
 )
-from libmultiviewnative_tpu.utils.synthetic import gaussian_kernel
+from libmultiviewnative_jax.utils.synthetic import gaussian_kernel
 
 OUT = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),

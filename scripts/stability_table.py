@@ -3,13 +3,10 @@
 
 Runs the same ladder as tests/test_stability_envelope.py on the current
 backend and prints a markdown table of relative L2 roundtrip errors for
-both engines.  Run with the default backend for the real-TPU envelope, or
-``--platform cpu`` for the host (pocketfft) column.
-
-``--fused`` appends the FUSED-engine envelope (tests/test_stability_fused
-ladder): convolve-vs-float64-oracle rows across the eligible 256..512
-class at both precisions, fold_x on/off at X=512, plus the fused RL view
-step.  Needs the real TPU (first run compiles ~12 Mosaic programs).
+both engines.  Run with the default backend for the GPU envelope, or
+``--platform cpu`` for the host (pocketfft) column.  ``--precision high``
+runs the dense-DFT engine's einsums at 'high' (TF32 on a GPU) instead of
+the default 'highest'.
 """
 
 import argparse
@@ -21,119 +18,26 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def fused_section():
-    """Fused Mosaic engine rows (real TPU): convolve + RL step vs the
-    float64 mirror, both precisions, fold_x on/off at X=512."""
-    import jax
-    import jax.numpy as jnp
-
-    from libmultiviewnative_tpu.ops.pallas.fused_dft2 import (
-        fused_convolve_spectrum,
-        fused_convolve_transposed,
-        fused_rl_step_transposed,
-        kernel_spectrum_fused,
-    )
-    from libmultiviewnative_tpu.reference.numpy_ref import (
-        np_convolve_spectrum,
-        np_rl_view_step,
-        np_wrap_kernel,
-    )
-
-    interp = jax.default_backend() == "cpu"
-    if interp:
-        print("\n(fused section skipped: needs the real TPU backend)")
-        return
-
-    rel = lambda a, b: float(np.linalg.norm(a - b) / np.linalg.norm(b))
-    ladder = [(256, 256, 256), (264, 264, 264), (256, 320, 384), (256, 256, 512)]
-    rng = np.random.default_rng(11)
-
-    print("\n## fused engine (convolve vs float64 oracle)\n")
-    print("| shape | fold_x | f32 'highest' rel err | bf16_3x rel err |")
-    print("|---|---|---|---|")
-    for shape in ladder:
-        x = rng.gamma(2.0, 20.0, shape).astype(np.float32)
-        k = rng.gamma(2.0, 1.0, (9, 9, 9)).astype(np.float32)
-        k /= k.sum()
-        k_hat = np.fft.rfftn(np_wrap_kernel(k.astype(np.float64), shape))
-        want = np_convolve_spectrum(x.astype(np.float64), k_hat)
-        folds = (False, True) if shape[-1] >= 512 else (False,)
-        for fold in folds:
-            errs = []
-            for prec in ("highest", "bf16_3x"):
-                kre, kim = kernel_spectrum_fused(
-                    jnp.asarray(k), shape, precision=prec
-                )
-                if fold:
-                    xt = jnp.transpose(jnp.asarray(x), (0, 2, 1))
-                    got_t = fused_convolve_transposed(
-                        xt, kre, kim, precision=prec, fold_x=True
-                    )
-                    got = np.asarray(jnp.transpose(got_t, (0, 2, 1)))
-                else:
-                    got = np.asarray(
-                        fused_convolve_spectrum(
-                            jnp.asarray(x), kre, kim, precision=prec
-                        )
-                    )
-                errs.append(rel(got, want))
-            print(
-                f"| {shape} | {'on' if fold else 'off'} "
-                f"| {errs[0]:.2e} | {errs[1]:.2e} |"
-            )
-
-    shape = (256, 256, 256)
-    psi = rng.gamma(2.0, 20.0, shape).astype(np.float32)
-    x = rng.gamma(2.0, 20.0, shape).astype(np.float32)
-    k1 = rng.gamma(2.0, 1.0, (9, 9, 9)).astype(np.float32)
-    k1 /= k1.sum()
-    k2 = np.flip(k1).copy()
-    k1h = np.fft.rfftn(np_wrap_kernel(k1.astype(np.float64), shape))
-    k2h = np.fft.rfftn(np_wrap_kernel(k2.astype(np.float64), shape))
-    want = np_rl_view_step(
-        psi.astype(np.float64), x.astype(np.float64), k1h, k2h,
-        np.full(shape, 0.25), 0.006, 1e-4,
-    )
-    print("\n| fused RL view step | f32 'highest' | bf16_3x |")
-    print("|---|---|---|")
-    errs = []
-    for prec in ("highest", "bf16_3x"):
-        k1s = kernel_spectrum_fused(jnp.asarray(k1), shape, precision=prec)
-        k2s = kernel_spectrum_fused(jnp.asarray(k2), shape, precision=prec)
-        t = lambda a: jnp.transpose(jnp.asarray(a), (0, 2, 1))
-        got_t = fused_rl_step_transposed(
-            t(psi), t(x), jnp.float32(0.25), k1s, k2s, 0.006, 1e-4,
-            precision=prec,
-        )
-        errs.append(rel(np.asarray(jnp.transpose(got_t, (0, 2, 1))), want))
-    print(f"| {shape} | {errs[0]:.2e} | {errs[1]:.2e} |")
-    print("\ngates (tests/test_stability_fused.py): f32 2e-5, bf16_3x 1.5e-4")
-
-
 def main():
     p = argparse.ArgumentParser()
     p.add_argument("--platform", default=None)
-    p.add_argument("--fused", action="store_true",
-                   help="append the fused-engine envelope (real TPU)")
+    p.add_argument("--precision", default="highest",
+                   choices=["highest", "high"])
     args = p.parse_args()
 
     import jax
 
+    from libmultiviewnative_jax.utils.compile_cache import enable_compile_cache
+
     if args.platform:
         jax.config.update("jax_platforms", args.platform)
-    cache_dir = os.environ.get(
-        "JAX_CACHE_DIR",
-        os.path.join(os.path.dirname(os.path.dirname(__file__)), ".jax_cache"),
-    )
-    try:
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+    enable_compile_cache()
     import jax.numpy as jnp
 
-    from libmultiviewnative_tpu.core import dft
-    from libmultiviewnative_tpu.core.fft import irfft3, rfft3
+    from libmultiviewnative_jax.core import dft
+    from libmultiviewnative_jax.core.fft import irfft3, rfft3
+
+    dft.set_matmul_precision(args.precision)
 
     families = [
         ("2^n", [8, 64, 256, 512]),
@@ -144,7 +48,10 @@ def main():
         ("mixed", [96, 160, 320, 384]),
     ]
     dev = jax.devices()[0]
-    print(f"backend: {dev.platform} ({getattr(dev, 'device_kind', '?')})\n")
+    print(
+        f"backend: {dev.platform} ({getattr(dev, 'device_kind', '?')}), "
+        f"dft precision: {args.precision}\n"
+    )
     print("| family | N (axis) | fft engine rel err | dft engine rel err |")
     print("|---|---|---|---|")
     rng = np.random.default_rng(0)
@@ -164,9 +71,6 @@ def main():
             worst = max(worst, ef, ed)
             print(f"| {fam} | {n} | {ef:.2e} | {ed:.2e} |")
     print(f"\nworst-case: {worst:.2e}  (test gate: 5e-6)")
-
-    if args.fused:
-        fused_section()
 
 
 if __name__ == "__main__":

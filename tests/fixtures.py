@@ -22,7 +22,7 @@ from typing import Dict, Tuple
 
 import numpy as np
 
-from libmultiviewnative_tpu.reference.oracle import direct_convolve
+from libmultiviewnative_jax.reference.oracle import direct_convolve
 
 
 def kernels_3d(K: int = 3) -> Dict[str, np.ndarray]:

@@ -1,6 +1,6 @@
 """Bench tooling tests: row schema, dims parsing, ladder generator.
 
-Parity targets: /root/reference/bench/logging.hpp:9-60 (row format),
+Parity targets: reference bench/logging.hpp:9-60 (row format),
 bench/synthetic_data.hpp:11-35 (dims split), python/generate_dims.py:4-48
 (anisotropic 2^n ladder)."""
 
@@ -13,7 +13,7 @@ import pytest
 
 from benchmarks.common import parse_dims
 from benchmarks.sweep import generate_dims
-from libmultiviewnative_tpu.utils.logging import BenchRow
+from libmultiviewnative_jax.utils.logging import BenchRow
 
 
 def test_parse_dims():
@@ -26,14 +26,14 @@ def test_parse_dims():
 
 def test_bench_row_schema():
     row = BenchRow(
-        n_devices=1, dev_type="tpu", dev_name="TPU v5 lite", n_repeats=10,
+        n_devices=1, dev_type="gpu", dev_name="NVIDIA H100 80GB HBM3", n_repeats=10,
         total_time_ms=123.456, dims=(64, 32, 16), comment="rl bench",
     ).line()
     fields = row.split()
     # n_devices dev_type dev_name n_repeats total_time_ms x y z width comment
     assert fields[0] == "1"
-    assert fields[1] == "tpu"
-    assert fields[2] == "TPU_v5_lite"  # spaces escaped
+    assert fields[1] == "gpu"
+    assert fields[2] == "NVIDIA_H100_80GB_HBM3"  # spaces escaped
     assert fields[3] == "10"
     assert float(fields[4]) == pytest.approx(123.456)
     assert fields[5:8] == ["64", "32", "16"]
@@ -53,25 +53,21 @@ def test_generate_dims_ladder():
 
 def test_bench_slope_helper(monkeypatch):
     """bench._slope_config: two-point fit at (n/3, n) — the larger point
-    is the shipped config (round-5: a 3n-iteration 512^3 program
-    exceeded HBM where the n-iteration config fits); LMVN_BENCH_SLOPE=0
-    and degenerate iteration counts return None."""
-    import numpy as np
+    is the timed config itself; degenerate iteration counts return None.
+    Every call is waited for with block_until_ready."""
+    import jax
 
     import bench
 
-    class _FakeJnp:
-        @staticmethod
-        def sum(x):
-            return float(x)
-
     # linear cost model: t(n) = overhead + n * per_iter
     calls = []
+    waited = []
 
     def run_n(n):
         calls.append(n)
-        return 0.0
+        return n
 
+    monkeypatch.setattr(jax, "block_until_ready", lambda x: waited.append(x))
     # emulate timing by monkeypatching perf_counter around a deterministic
     # schedule: warmup + 2 passes per point
     times = iter(
@@ -83,12 +79,42 @@ def test_bench_slope_helper(monkeypatch):
     monkeypatch.setattr(
         bench.time, "perf_counter", lambda: next(times)
     )
-    s = bench._slope_config(run_n, _FakeJnp, 10)
+    s = bench._slope_config(run_n, 10)
     # slope = (10-3)/(1.5-0.8) = 10 it/s on the synthetic cost model
     assert abs(s - 10.0) < 1e-6, s
     assert calls == [3, 3, 3, 10, 10, 10]  # warmup + 2 passes each
+    assert waited == calls  # every call ended by block_until_ready
 
-    monkeypatch.setenv("LMVN_BENCH_SLOPE", "0")
-    assert bench._slope_config(run_n, _FakeJnp, 10) is None
-    monkeypatch.delenv("LMVN_BENCH_SLOPE")
-    assert bench._slope_config(run_n, _FakeJnp, 1) is None  # lo >= iters
+    assert bench._slope_config(run_n, 1) is None  # lo >= iters
+
+
+def test_bench_time_config_waits_for_every_call(monkeypatch):
+    import jax
+
+    import bench
+
+    waited = []
+    monkeypatch.setattr(jax, "block_until_ready", lambda x: waited.append(x))
+    times = iter([0.0, 2.0, 10.0, 11.0])
+    monkeypatch.setattr(bench.time, "perf_counter", lambda: next(times))
+    rate = bench._time_config(lambda: "out", iters=10, reps=2)
+    # best pass: 1.0 s for 2 reps -> 0.5 s per 10-iteration call
+    assert rate == pytest.approx(20.0)
+    assert len(waited) == 1 + 2 * 2  # warmup + 2 passes x 2 reps
+
+
+def test_bench_emit_names_the_device(capsys):
+    import json
+
+    import bench
+
+    device = {"platform": "gpu", "device_kind": "NVIDIA H100 80GB HBM3",
+              "device_count": 1, "power_limit": "NVIDIA H100 80GB HBM3, 700.00 W"}
+    bench._emit("rl_deconv_iters_per_sec_4view_256cubed", 12.5, 13.0, device)
+    row = json.loads(capsys.readouterr().out.strip())
+    assert row["metric"] == "rl_deconv_iters_per_sec_4view_256cubed"
+    assert row["unit"] == "iterations/s"
+    assert row["value"] == 12.5 and row["slope"] == 13.0
+    for key in ("platform", "device_kind", "device_count", "power_limit"):
+        assert row[key] == device[key]
+    assert "fallback" not in row and "vs_baseline" not in row

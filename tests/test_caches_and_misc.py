@@ -9,11 +9,11 @@ import pytest
 
 import jax.numpy as jnp
 
-from libmultiviewnative_tpu.core.fft import KernelSpectrumCache
-from libmultiviewnative_tpu.core.dft import make_plan
-from libmultiviewnative_tpu.io.stacks import load_stack_h5, save_stack_h5
-from libmultiviewnative_tpu.utils.printing import format_stack
-from libmultiviewnative_tpu.utils.synthetic import gaussian_kernel
+from libmultiviewnative_jax.core.fft import KernelSpectrumCache
+from libmultiviewnative_jax.core.dft import make_plan
+from libmultiviewnative_jax.io.stacks import load_stack_h5, save_stack_h5
+from libmultiviewnative_jax.utils.printing import format_stack
+from libmultiviewnative_jax.utils.synthetic import gaussian_kernel
 
 
 def test_spectrum_cache_hit_miss_clear():

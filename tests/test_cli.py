@@ -3,13 +3,13 @@
 import numpy as np
 import pytest
 
-from libmultiviewnative_tpu.cli import main as cli_main
-from libmultiviewnative_tpu.io.stacks import read_tiff_stack, write_tiff_stack
-from libmultiviewnative_tpu.reference.numpy_ref import (
+from libmultiviewnative_jax.cli import main as cli_main
+from libmultiviewnative_jax.io.stacks import read_tiff_stack, write_tiff_stack
+from libmultiviewnative_jax.reference.numpy_ref import (
     np_convolve_spectrum,
     np_wrap_kernel,
 )
-from libmultiviewnative_tpu.utils.synthetic import gaussian_kernel
+from libmultiviewnative_jax.utils.synthetic import gaussian_kernel
 
 
 def test_cli_roundtrip(tmp_path, capsys):
@@ -52,7 +52,7 @@ def test_cli_h5_roundtrip(tmp_path, capsys):
     """h5 inputs (file:dataset) and h5 output."""
     import h5py
 
-    from libmultiviewnative_tpu.io.stacks import save_stack_h5, load_stack_h5
+    from libmultiviewnative_jax.io.stacks import save_stack_h5, load_stack_h5
 
     shape = (12, 12, 12)
     rng = np.random.default_rng(5)
@@ -77,7 +77,7 @@ def test_cli_h5_roundtrip(tmp_path, capsys):
 
 
 def test_open_stack_h5_chunked_reads(tmp_path):
-    from libmultiviewnative_tpu.io.stacks import open_stack_h5, save_stack_h5
+    from libmultiviewnative_jax.io.stacks import open_stack_h5, save_stack_h5
 
     a = np.random.default_rng(1).normal(size=(20, 6, 6)).astype(np.float32)
     p = str(tmp_path / "c.h5")

@@ -11,13 +11,13 @@ test_fixtures.hpp:112-117).
 import numpy as np
 import pytest
 
-from libmultiviewnative_tpu.core.convolve import (
+from libmultiviewnative_jax.core.convolve import (
     convolve_spectrum,
     direct_convolve3d,
     fft_convolve3d,
 )
-from libmultiviewnative_tpu.core.fft import forward_kernel_spectrum
-from libmultiviewnative_tpu.reference.oracle import direct_convolve, rms
+from libmultiviewnative_jax.core.fft import forward_kernel_spectrum
+from libmultiviewnative_jax.reference.oracle import direct_convolve, rms
 
 from fixtures import convolution_fixture_3d
 
@@ -85,7 +85,7 @@ def test_fft_roundtrip_stability(shape):
     # numerical-stability envelope of test_fftw_numerical_stability.cpp:
     # fft -> ifft of a ramp must reproduce the input closely for 2^n and
     # prime shapes alike
-    from libmultiviewnative_tpu.core.fft import irfft3, rfft3
+    from libmultiviewnative_jax.core.fft import irfft3, rfft3
 
     x = np.arange(np.prod(shape), dtype=np.float32).reshape(shape)
     back = np.asarray(irfft3(rfft3(x), shape))

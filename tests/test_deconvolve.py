@@ -1,8 +1,8 @@
 """Integration tests: multi-view RL deconvolution vs the float64 reference.
 
-The TPU analog of /root/reference/tests/test_cpu_deconvolve.cpp:53-142 —
-with goldens regenerated by the in-repo float64 numpy mirror (the external
-Fiji TIFF pack is unavailable; SURVEY.md §4 "TPU build implication").
+The analog of the reference's tests/test_cpu_deconvolve.cpp:53-142 — with
+goldens regenerated by the in-repo float64 numpy mirror (the external Fiji
+TIFF pack is unavailable; SURVEY.md §4).
 Tolerances mirror the reference's acceptance structure: tight central-crop
 rms, looser global rms.
 """
@@ -11,16 +11,16 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from libmultiviewnative_tpu.deconv.rl import deconvolve_jit
-from libmultiviewnative_tpu.deconv.workspace import (
+from libmultiviewnative_jax.deconv.rl import deconvolve_jit
+from libmultiviewnative_jax.deconv.workspace import (
     MultiViewData,
     Workspace,
     initial_psi,
     pad_kernel_to,
 )
-from libmultiviewnative_tpu.reference.numpy_ref import np_deconvolve
-from libmultiviewnative_tpu.reference.oracle import rms, rms_within_limits
-from libmultiviewnative_tpu.utils.synthetic import (
+from libmultiviewnative_jax.reference.numpy_ref import np_deconvolve
+from libmultiviewnative_jax.reference.oracle import rms, rms_within_limits
+from libmultiviewnative_jax.utils.synthetic import (
     delta_kernel,
     gaussian_kernel,
     multiview_data,
@@ -36,7 +36,7 @@ def _problem(num_views=4, shape=(16, 16, 16), seed=3):
         z, y, x = (rng.integers(2, s - 2) for s in shape)
         phantom[z, y, x] = 500.0
 
-    from libmultiviewnative_tpu.reference.numpy_ref import (
+    from libmultiviewnative_jax.reference.numpy_ref import (
         np_convolve_spectrum,
         np_wrap_kernel,
     )
@@ -131,7 +131,7 @@ def test_sequential_view_order_matters():
 
 
 def test_pad_kernel_preserves_spectrum():
-    from libmultiviewnative_tpu.core.fft import forward_kernel_spectrum
+    from libmultiviewnative_jax.core.fft import forward_kernel_spectrum
 
     k = gaussian_kernel((5, 4, 3), sigma=1.5)
     padded = pad_kernel_to(k, (7, 7, 7))
@@ -149,7 +149,7 @@ def test_workspace_from_heterogeneous_kernels():
 
 
 def test_convergence_history():
-    from libmultiviewnative_tpu.deconv.rl import deconvolve_with_history
+    from libmultiviewnative_jax.deconv.rl import deconvolve_with_history
 
     views, k1s, k2s, ws = _problem(num_views=2)
     psi0 = np.full(views[0].shape, float(np.mean(views)), np.float32)
@@ -170,9 +170,9 @@ def test_convergence_history():
     np.testing.assert_allclose(np.asarray(psi), want, rtol=1e-6, atol=1e-6)
 
 
-def test_fused_engine_matches_dft_engine(rng):
-    """algorithm='fused' (transposed-domain Mosaic kernel) must match the
-    einsum engine's math, including the adjoint-kernel2 spectra path."""
+def test_direct_engine_matches_dft_engine(rng):
+    """algorithm='direct' (spatial stencil) must match the einsum engine's
+    math on a non-cubic volume, including the adjoint-kernel2 path."""
     V, shape = 2, (16, 24, 32)
     k1 = np.stack([gaussian_kernel((5, 5, 5), 1.0 + 0.2 * v) for v in range(V)])
     data = MultiViewData(
@@ -183,22 +183,22 @@ def test_fused_engine_matches_dft_engine(rng):
     )
     psi0 = jnp.full(shape, float(jnp.mean(data.views)), jnp.float32)
     want = np.asarray(deconvolve_jit(psi0 + 0.0, data, 3, lam=0.006, algorithm="dft"))
-    got = np.asarray(deconvolve_jit(psi0 + 0.0, data, 3, lam=0.006, algorithm="fused"))
+    got = np.asarray(deconvolve_jit(psi0 + 0.0, data, 3, lam=0.006, algorithm="direct"))
     assert rms(got, want) < 1e-4
-    # adjoint path: conj spectra in the fused layout
+    # adjoint path: conj spectra vs the flipped spatial kernel
     want_a = np.asarray(
         deconvolve_jit(psi0 + 0.0, data, 2, algorithm="dft", adjoint_kernel2=True)
     )
     got_a = np.asarray(
-        deconvolve_jit(psi0 + 0.0, data, 2, algorithm="fused", adjoint_kernel2=True)
+        deconvolve_jit(psi0 + 0.0, data, 2, algorithm="direct", adjoint_kernel2=True)
     )
     assert rms(got_a, want_a) < 1e-4
 
 
-def test_fused_engine_simultaneous_order(rng):
-    """view_order='simultaneous' must work with the fused engine (the
-    step runs under vmap over views — validated against the dft engine;
-    also verified lowering on real TPU, docs/PERFORMANCE.md)."""
+def test_direct_engine_simultaneous_order(rng):
+    """view_order='simultaneous' must work with the direct engine (the
+    step runs under vmap over views — validated against the dft
+    engine)."""
     V, shape = 2, (16, 16, 16)
     k1 = np.stack([gaussian_kernel((5, 5, 5), 1.0 + 0.2 * v) for v in range(V)])
     data = MultiViewData(
@@ -210,7 +210,7 @@ def test_fused_engine_simultaneous_order(rng):
     psi0 = jnp.full(shape, float(jnp.mean(data.views)), jnp.float32)
     out = np.asarray(
         deconvolve_jit(
-            psi0 + 0.0, data, 2, algorithm="fused", view_order="simultaneous"
+            psi0 + 0.0, data, 2, algorithm="direct", view_order="simultaneous"
         )
     )
     ref = np.asarray(

@@ -1,25 +1,25 @@
-"""MXU dense-DFT engine tests: numerical parity with numpy rfftn and with
-the XLA-FFT convolution engine, across the reference's shape families
-(2^n, odd, primes, mixed — the envelope of
-/root/reference/tests/test_fftw_numerical_stability.cpp:30-671)."""
+"""Dense-DFT engine tests: numerical parity with numpy rfftn and with the
+XLA-FFT convolution engine, across the reference's shape families (2^n,
+odd, primes, mixed — the envelope of the reference's
+tests/test_fftw_numerical_stability.cpp:30-671)."""
 
 import numpy as np
 import pytest
 
 import jax.numpy as jnp
 
-from libmultiviewnative_tpu.core.convolve import fft_convolve3d
-from libmultiviewnative_tpu.core.dft import (
+from libmultiviewnative_jax.core.convolve import fft_convolve3d
+from libmultiviewnative_jax.core.dft import (
     dft3,
     dft_convolve_spectrum,
     idft3,
     kernel_spectrum_split,
     make_plan,
 )
-from libmultiviewnative_tpu.deconv.rl import deconvolve_jit
-from libmultiviewnative_tpu.deconv.workspace import MultiViewData
-from libmultiviewnative_tpu.reference.oracle import rms
-from libmultiviewnative_tpu.utils.synthetic import gaussian_kernel
+from libmultiviewnative_jax.deconv.rl import deconvolve_jit
+from libmultiviewnative_jax.deconv.workspace import MultiViewData
+from libmultiviewnative_jax.reference.oracle import rms
+from libmultiviewnative_jax.utils.synthetic import gaussian_kernel
 
 
 @pytest.mark.parametrize(
@@ -67,7 +67,7 @@ def test_dft_convolve_batched(rng):
 )
 def test_mixed_radix_full_mode_matches_numpy(shape, rng):
     # axes > 256 trigger the FullDFTPlan (split Cooley-Tukey stage)
-    from libmultiviewnative_tpu.core.dft import FullDFTPlan
+    from libmultiviewnative_jax.core.dft import FullDFTPlan
 
     x = rng.normal(size=shape).astype(np.float32)
     plan = make_plan(shape)
@@ -90,7 +90,7 @@ def test_mixed_radix_convolve_matches_fft_engine(rng):
 
 
 def test_pick_split_prefers_mxu_m():
-    from libmultiviewnative_tpu.core.dft import _pick_split
+    from libmultiviewnative_jax.core.dft import _pick_split
 
     assert _pick_split(512) == (4, 128)
     assert _pick_split(384) == (3, 128)
@@ -114,7 +114,7 @@ def test_deconvolve_dft_algorithm_matches_fft(rng):
     assert rms(a, b) < 1e-3
 
 
-def test_deconvolve_fused_algorithm_matches_fft(rng):
+def test_deconvolve_direct_algorithm_matches_fft(rng):
     shape = (16, 16, 16)
     V = 2
     views = rng.gamma(2.0, 20.0, (V,) + shape).astype(np.float32)
@@ -127,7 +127,7 @@ def test_deconvolve_fused_algorithm_matches_fft(rng):
     )
     psi0 = jnp.full(shape, float(np.mean(views)), jnp.float32)
     a = np.asarray(deconvolve_jit(psi0.copy(), data, 2, algorithm="fft"))
-    b = np.asarray(deconvolve_jit(psi0.copy(), data, 2, algorithm="fused"))
+    b = np.asarray(deconvolve_jit(psi0.copy(), data, 2, algorithm="direct"))
     assert rms(a, b) < 1e-3
 
 

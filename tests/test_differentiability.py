@@ -9,9 +9,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from libmultiviewnative_tpu.core.convolve import fft_convolve3d
-from libmultiviewnative_tpu.deconv.rl import prepare_spectra, rl_view_step
-from libmultiviewnative_tpu.utils.synthetic import gaussian_kernel
+from libmultiviewnative_jax.core.convolve import fft_convolve3d
+from libmultiviewnative_jax.deconv.rl import prepare_spectra, rl_view_step
+from libmultiviewnative_jax.utils.synthetic import gaussian_kernel
 
 
 def test_grad_through_convolve(rng):

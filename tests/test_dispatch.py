@@ -8,15 +8,15 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from libmultiviewnative_tpu.deconv.dispatch import (
+from libmultiviewnative_jax.deconv.dispatch import (
     deconvolve_auto,
     device_capacity_bytes,
     estimate_workspace_bytes,
 )
-from libmultiviewnative_tpu.deconv.rl import deconvolve_jit
-from libmultiviewnative_tpu.deconv.workspace import MultiViewData
-from libmultiviewnative_tpu.reference.oracle import rms
-from libmultiviewnative_tpu.utils.synthetic import gaussian_kernel
+from libmultiviewnative_jax.deconv.rl import deconvolve_jit
+from libmultiviewnative_jax.deconv.workspace import MultiViewData
+from libmultiviewnative_jax.reference.oracle import rms
+from libmultiviewnative_jax.utils.synthetic import gaussian_kernel
 
 
 def _data(rng, V=2, shape=(16, 8, 8)):
@@ -55,7 +55,7 @@ def test_auto_streamed_rung_matches(rng, monkeypatch):
     # force the streamed rung by shrinking the believed capacity;
     # engine pinned so the comparison is engine-matched (algorithm='auto'
     # resolves per-chunk on the streamed rung)
-    import libmultiviewnative_tpu.deconv.dispatch as dd
+    import libmultiviewnative_jax.deconv.dispatch as dd
 
     monkeypatch.setattr(dd, "device_capacity_bytes", lambda device=None: 1)
     monkeypatch.setattr(jax, "device_count", lambda: 1)
@@ -72,13 +72,14 @@ def test_auto_streamed_rung_matches(rng, monkeypatch):
     assert rms(got, want) < 1e-5
 
 
-def test_streamed_rung_honors_algorithm_and_elementwise(rng, monkeypatch):
-    """Option fidelity: algorithm='dft' must actually reach the streamed
-    rung's chunk programs (observed via the kernel-operand preparation),
-    the result must still match the in-core engine to overlap-save
-    roundoff, and elementwise='pallas' must run (interpreter on CPU)."""
-    import libmultiviewnative_tpu.deconv.dispatch as dd
-    import libmultiviewnative_tpu.deconv.streamed as ds
+@pytest.mark.parametrize("algorithm,tol", [("dft", 5e-5), ("fft", 1e-5)])
+def test_streamed_rung_honors_algorithm(rng, monkeypatch, algorithm, tol):
+    """Option fidelity: the requested engine must actually reach the
+    streamed rung's chunk programs (observed via the kernel-operand
+    preparation), and the result must still match the in-core engine to
+    overlap-save roundoff."""
+    import libmultiviewnative_jax.deconv.dispatch as dd
+    import libmultiviewnative_jax.deconv.streamed as ds
 
     monkeypatch.setattr(dd, "device_capacity_bytes", lambda device=None: 1)
     monkeypatch.setattr(jax, "device_count", lambda: 1)
@@ -94,29 +95,16 @@ def test_streamed_rung_honors_algorithm_and_elementwise(rng, monkeypatch):
     psi0 = jnp.full((16, 8, 8), float(jnp.mean(data.views)), jnp.float32)
     got = np.asarray(
         deconvolve_auto(
-            psi0.copy(), data, 2, lam=0.006, chunk_z=8, algorithm="dft"
+            psi0.copy(), data, 2, lam=0.006, chunk_z=8, algorithm=algorithm
         )
     )
-    assert used_algos == {"dft"}
-    want_dft = np.asarray(
-        deconvolve_jit(psi0.copy(), data, 2, lam=0.006, algorithm="dft")
+    assert used_algos == {algorithm}
+    want = np.asarray(
+        deconvolve_jit(psi0.copy(), data, 2, lam=0.006, algorithm=algorithm)
     )
     # overlap-save transforms run at extended-chunk extents, so agreement
     # is to f32 roundoff, not bitwise
-    assert rms(got, want_dft) < 5e-5
-
-    used_algos.clear()
-    got_p = np.asarray(
-        deconvolve_auto(
-            psi0.copy(), data, 2, lam=0.006, chunk_z=8,
-            algorithm="fft", elementwise="pallas",
-        )
-    )
-    assert used_algos == {"fft"}
-    want_fft = np.asarray(
-        deconvolve_jit(psi0.copy(), data, 2, lam=0.006, algorithm="fft")
-    )
-    assert rms(got_p, want_fft) < 1e-5
+    assert rms(got, want) < tol
 
 
 def test_auto_sequential_routes_to_zonly_mesh(rng, monkeypatch):
@@ -125,12 +113,14 @@ def test_auto_sequential_routes_to_zonly_mesh(rng, monkeypatch):
     match the single-device sequential (parity) result."""
     import warnings
 
-    import libmultiviewnative_tpu.deconv.dispatch as dd
+    import libmultiviewnative_jax.deconv.dispatch as dd
 
     data = _data(rng)
     est = estimate_workspace_bytes(data)
+    # too small for in-core, big enough for one device's share of the
+    # z-only working set (its replicated halo-extent spectra included)
     monkeypatch.setattr(
-        dd, "device_capacity_bytes", lambda device=None: int(est / 4)
+        dd, "device_capacity_bytes", lambda device=None: int(est / 1.5)
     )
     psi0 = jnp.full((16, 8, 8), float(jnp.mean(data.views)), jnp.float32)
     with warnings.catch_warnings():
@@ -148,7 +138,7 @@ def test_auto_sharded_rung_matches(rng, monkeypatch):
     # force the view-sharded rung: capacity tiny but fleet big enough;
     # the z-only parity route is disabled to model a volume with no legal
     # z-only factorization
-    import libmultiviewnative_tpu.deconv.dispatch as dd
+    import libmultiviewnative_jax.deconv.dispatch as dd
 
     data = _data(rng)
     est = estimate_workspace_bytes(data)
@@ -174,7 +164,7 @@ def test_sharded_rung_honors_algorithm(rng, monkeypatch):
     """algorithm='dft' forwarded to the sharded rung (regression: it was
     silently dropped to 'fft' pre round 2).  The round-5 z-only parity
     route is disabled so the request lands on the VIEW-sharded rung."""
-    import libmultiviewnative_tpu.deconv.dispatch as dd
+    import libmultiviewnative_jax.deconv.dispatch as dd
 
     data = _data(rng)
     est = estimate_workspace_bytes(data)
@@ -187,7 +177,7 @@ def test_sharded_rung_honors_algorithm(rng, monkeypatch):
         got = np.asarray(
             deconvolve_auto(psi0.copy(), data, 2, lam=0.006, algorithm="dft")
         )
-    from libmultiviewnative_tpu.parallel.sharded import (
+    from libmultiviewnative_jax.parallel.sharded import (
         deconvolve_sharded_jit,
         make_mesh,
         shard_workspace,
@@ -205,7 +195,7 @@ def test_sharded_rung_honors_algorithm(rng, monkeypatch):
 
 
 def test_strict_mode_raises_on_divergence(rng, monkeypatch):
-    import libmultiviewnative_tpu.deconv.dispatch as dd
+    import libmultiviewnative_jax.deconv.dispatch as dd
 
     data = _data(rng)
     est = estimate_workspace_bytes(data)
@@ -230,7 +220,7 @@ def test_strict_mode_raises_on_divergence(rng, monkeypatch):
 def test_auto_streamed_honors_adjoint_kernel2(rng, monkeypatch):
     """Regression: adjoint_kernel2 must not be dropped when dispatch falls
     to the streamed rung (a stale data.kernel2 must stay ignored)."""
-    import libmultiviewnative_tpu.deconv.dispatch as dd
+    import libmultiviewnative_jax.deconv.dispatch as dd
 
     data = _data(rng)  # (3,3,3) kernels - odd, adjoint-eligible
     # poison kernel2 so using it would visibly change the result
@@ -262,7 +252,7 @@ def test_auto_mesh_factorization_falls_back_to_stream(rng, monkeypatch):
     ('view','z') factorization — dispatch must stream, not crash.  (The
     round-5 z-only parity route is disabled here: Z=15 DOES have a 1x5
     z-only factorization, which is covered by its own test above.)"""
-    import libmultiviewnative_tpu.deconv.dispatch as dd
+    import libmultiviewnative_jax.deconv.dispatch as dd
 
     monkeypatch.setattr(dd, "_pick_zonly_mesh", lambda *a, **k: None)
     data = _data(rng, V=2, shape=(15, 8, 8))
@@ -279,7 +269,7 @@ def test_auto_mesh_factorization_falls_back_to_stream(rng, monkeypatch):
 
 
 def test_model_view_order_honored_under_auto_dispatch(rng):
-    from libmultiviewnative_tpu.models import RichardsonLucy
+    from libmultiviewnative_jax.models import RichardsonLucy
 
     data = _data(rng)
     model = RichardsonLucy(
@@ -294,46 +284,143 @@ def test_model_view_order_honored_under_auto_dispatch(rng):
     assert rms(got, want) < 1e-6
 
 
-def test_resolve_algorithm_fused_crossover(monkeypatch):
-    """'auto' routes: dft <= 256/axis; above that the fused Mosaic kernel
-    when its layout constraints hold AND the backend is a real TPU; the
-    fft engine otherwise (including always on the CPU test mesh)."""
-    from libmultiviewnative_tpu.deconv import dispatch as dp
-    from libmultiviewnative_tpu.deconv import rl
+@pytest.mark.parametrize(
+    "backend,shape,want",
+    [
+        ("cpu", (64, 64, 64), "dft"),
+        ("cpu", (256, 256, 256), "dft"),
+        ("cpu", (257, 16, 16), "fft"),
+        ("cpu", (512, 512, 512), "fft"),
+        ("cpu", (300, 1024, 1024), "fft"),
+        ("gpu", (16, 16, 16), "fft"),
+        ("gpu", (256, 256, 256), "fft"),
+        ("gpu", (512, 512, 512), "fft"),
+        ("gpu", (300, 1024, 1024), "fft"),
+        ("some-other-backend", (16, 16, 16), "fft"),
+    ],
+)
+def test_resolve_algorithm_policy(backend, shape, want):
+    """The one engine policy: on the CPU the dense DFT up to 256/axis and
+    XLA's FFT above; on a GPU (cuFFT) and any other backend, fft."""
+    from libmultiviewnative_jax.deconv.policy import resolve_algorithm
 
-    assert dp.resolve_algorithm("auto", (256, 256, 256)) == "dft"
-    assert dp.resolve_algorithm("dft", (512, 512, 512)) == "dft"
-    # this suite runs on the CPU mesh: never fused
-    assert dp.resolve_algorithm("auto", (512, 512, 512)) == "fft"
-
-    monkeypatch.setattr(rl.jax, "default_backend", lambda: "tpu")
-    assert dp.resolve_algorithm("auto", (512, 512, 512)) == "fused"
-    # 256-class shapes route to fused too (measured 55.4 vs 50.6 it/s)
-    assert dp.resolve_algorithm("auto", (256, 256, 256)) == "fused"
-    assert dp.resolve_algorithm("auto", (128, 128, 128)) == "dft"
-    # constraint violations fall back to fft
-    assert dp.resolve_algorithm("auto", (300, 512, 512)) == "fft"  # Z%8
-    assert dp.resolve_algorithm("auto", (512, 512, 511)) == "fft"  # odd X
+    assert resolve_algorithm("auto", shape, backend) == want
 
 
-def test_auto_fused_request_falls_back_off_incore(rng, monkeypatch):
-    """algorithm='fused' is in-core-only: when dispatch leaves the in-core
-    rung it must warn and fall back to per-rung auto, not crash."""
-    import warnings as _w
-    from libmultiviewnative_tpu.deconv.dispatch import DispatchDivergenceWarning
+@pytest.mark.parametrize("algorithm", ["fft", "dft", "direct"])
+@pytest.mark.parametrize("backend", ["cpu", "gpu"])
+def test_resolve_algorithm_explicit_passthrough(algorithm, backend):
+    from libmultiviewnative_jax.deconv.policy import resolve_algorithm
+
+    assert resolve_algorithm(algorithm, (512, 512, 512), backend) == algorithm
+
+
+def test_resolve_algorithm_defaults_to_running_backend():
+    from libmultiviewnative_jax.deconv.policy import resolve_algorithm
+
+    assert jax.default_backend() == "cpu"
+    assert resolve_algorithm("auto", (256, 256, 256)) == "dft"
+
+
+class _FakeDevice:
+    def __init__(self, platform, stats):
+        self.platform = platform
+        self._stats = stats
+
+    def memory_stats(self):
+        return self._stats
+
+
+def test_capacity_reads_allocator_limit():
+    from libmultiviewnative_jax.deconv.dispatch import device_capacity_bytes
+
+    dev = _FakeDevice("gpu", {"bytes_limit": 60 * 1024**3, "bytes_in_use": 0})
+    assert device_capacity_bytes(dev) == 60 * 1024**3
+
+
+@pytest.mark.parametrize("stats", [None, {}, {"bytes_limit": 0}])
+def test_capacity_accelerator_without_limit_raises(stats):
+    from libmultiviewnative_jax.deconv.dispatch import device_capacity_bytes
+
+    with pytest.raises(RuntimeError, match="bytes_limit"):
+        device_capacity_bytes(_FakeDevice("gpu", stats))
+
+
+def test_capacity_cpu_uses_named_test_default():
+    from libmultiviewnative_jax.deconv.dispatch import (
+        CPU_TEST_CAPACITY_BYTES,
+        device_capacity_bytes,
+    )
+
+    assert device_capacity_bytes(_FakeDevice("cpu", None)) == (
+        CPU_TEST_CAPACITY_BYTES
+    )
+    assert device_capacity_bytes() == CPU_TEST_CAPACITY_BYTES
+
+
+def test_zonly_estimate_counts_replicated_spectra(rng):
+    """Every device of a z-only mesh holds BOTH spectra of EVERY view at
+    its halo-extended block extent — so the per-device working set is
+    larger than the in-core estimate split zp ways."""
+    from libmultiviewnative_jax.deconv.dispatch import (
+        estimate_zonly_bytes_per_device,
+    )
+
+    data = _data(rng, V=4, shape=(64, 16, 16))
+    est = estimate_workspace_bytes(data, "fft")
+    for zp in (2, 4, 8):
+        per_dev = estimate_zonly_bytes_per_device(data, zp, "fft")
+        assert per_dev > est // zp
+    # halos grow the per-device spectra: a wider kernel costs more
+    wide = MultiViewData(
+        views=data.views,
+        kernel1=jnp.asarray(np.stack([gaussian_kernel((9, 9, 9), 1.5)] * 4)),
+        kernel2=data.kernel2,
+        weights=data.weights,
+    )
+    assert estimate_zonly_bytes_per_device(wide, 8, "fft") > (
+        estimate_zonly_bytes_per_device(data, 8, "fft")
+    )
+
+
+def test_zonly_mesh_refused_when_per_device_set_overflows(rng):
+    """A cap that the old `est < cap * zp` test accepted but that cannot
+    hold one device's share of the z-only working set must not pick the
+    mesh."""
+    import libmultiviewnative_jax.deconv.dispatch as dd
+
+    data = _data(rng, V=4, shape=(64, 16, 16))
+    est = estimate_workspace_bytes(data, "fft")
+    per8 = dd.estimate_zonly_bytes_per_device(data, 8, "fft")
+    cap = (est // 8 + per8) // 2  # est < cap * 8, yet per8 > cap
+    assert est < cap * 8 and per8 > cap
+    mesh = dd._pick_zonly_mesh(data, 8, "fft", cap)
+    assert mesh is None or mesh.shape["z"] < 8
+    roomy = dd._pick_zonly_mesh(data, 8, "fft", per8 + 1)
+    assert roomy is not None and roomy.shape["z"] == 8
+
+
+def test_auto_direct_request_demoted_on_mesh(rng, monkeypatch):
+    """'direct' runs in-core and on the streamed rung only: when dispatch
+    lands on the view-sharded mesh it must warn and fall back to the
+    mesh's 'auto', not crash."""
+    import libmultiviewnative_jax.deconv.dispatch as dd
 
     data = _data(rng)
-    psi0 = jnp.full(data.spatial_shape, 100.0, jnp.float32)
+    est = estimate_workspace_bytes(data, "direct")
     monkeypatch.setattr(
-        "libmultiviewnative_tpu.deconv.dispatch.device_capacity_bytes",
-        lambda device=None: 1,
+        dd, "device_capacity_bytes", lambda device=None: int(est / 4)
     )
-    monkeypatch.setattr("jax.device_count", lambda: 1)
-    with pytest.warns(DispatchDivergenceWarning):
+    psi0 = jnp.full(data.spatial_shape, 100.0, jnp.float32)
+    with pytest.warns(dd.DispatchDivergenceWarning, match="'direct'"):
         out = deconvolve_auto(
-            psi0, data, num_iterations=2, algorithm="fused", chunk_z=8
+            psi0.copy(), data, num_iterations=2, algorithm="direct",
+            view_order="simultaneous",
         )
-    ref = deconvolve_jit(psi0, data, num_iterations=2, algorithm="fft")
+    ref = deconvolve_jit(
+        psi0.copy(), data, num_iterations=2, algorithm="fft",
+        view_order="simultaneous",
+    )
     assert rms(np.asarray(out), np.asarray(ref)) < 1e-4
 
 
@@ -341,10 +428,10 @@ def test_auto_interleaved_rung_matches(rng, monkeypatch):
     """Capacity between the interleaved estimate and the in-core estimate
     selects the interleaved rung (psi on device, views streamed), which
     must match the in-core sequential result."""
-    from libmultiviewnative_tpu.deconv.dispatch import (
+    from libmultiviewnative_jax.deconv.dispatch import (
         estimate_interleaved_bytes,
     )
-    import libmultiviewnative_tpu.deconv.interleaved as il
+    import libmultiviewnative_jax.deconv.interleaved as il
 
     data = _data(rng)
     psi0 = jnp.full(data.spatial_shape, 100.0, jnp.float32)
@@ -362,7 +449,7 @@ def test_auto_interleaved_rung_matches(rng, monkeypatch):
 
     monkeypatch.setattr(il, "deconvolve_interleaved", spy)
     monkeypatch.setattr(
-        "libmultiviewnative_tpu.deconv.dispatch.device_capacity_bytes",
+        "libmultiviewnative_jax.deconv.dispatch.device_capacity_bytes",
         lambda device=None: int(cap / 0.9) + 1,
     )
     monkeypatch.setattr("jax.device_count", lambda: 1)
@@ -374,41 +461,42 @@ def test_auto_interleaved_rung_matches(rng, monkeypatch):
     assert rms(np.asarray(out), np.asarray(ref)) < 1e-4
 
 
-def test_fused_honored_on_interleaved_rung(rng, monkeypatch):
-    """The interleaved rung supports the fused engine: an explicit
-    'fused' request served there must pass through with NO divergence
-    warning (and match the in-core fused result)."""
+@pytest.mark.parametrize("algorithm", ["fft", "dft"])
+def test_engine_honored_on_interleaved_rung(rng, monkeypatch, algorithm):
+    """The interleaved rung runs both spectral engines: an explicit
+    request served there must pass through with NO divergence warning
+    (and match the in-core result of the same engine)."""
     import warnings as _w
 
-    from libmultiviewnative_tpu.deconv.dispatch import (
+    from libmultiviewnative_jax.deconv.dispatch import (
         DispatchDivergenceWarning,
         estimate_interleaved_bytes,
     )
 
     data = _data(rng)
     psi0 = jnp.full(data.spatial_shape, 100.0, jnp.float32)
-    est_il = estimate_interleaved_bytes(data, "fused")
-    est_ic = estimate_workspace_bytes(data, "fused")
+    est_il = estimate_interleaved_bytes(data, algorithm)
+    est_ic = estimate_workspace_bytes(data, algorithm)
     cap = (est_il + est_ic) // 2
     monkeypatch.setattr(
-        "libmultiviewnative_tpu.deconv.dispatch.device_capacity_bytes",
+        "libmultiviewnative_jax.deconv.dispatch.device_capacity_bytes",
         lambda device=None: int(cap / 0.9) + 1,
     )
     monkeypatch.setattr("jax.device_count", lambda: 1)
     with _w.catch_warnings():
         _w.simplefilter("error", DispatchDivergenceWarning)
         out = deconvolve_auto(
-            psi0, data, num_iterations=2, algorithm="fused", chunk_z=8
+            psi0.copy(), data, num_iterations=2, algorithm=algorithm,
+            chunk_z=8,
         )
-    ref = deconvolve_jit(psi0, data, num_iterations=2, algorithm="fused")
+    ref = deconvolve_jit(psi0, data, num_iterations=2, algorithm=algorithm)
     assert rms(np.asarray(out), np.asarray(ref)) < 1e-4
 
 
 def test_sharded_rung_rejects_unsupported_engine(rng):
     """deconvolve_sharded must not silently serve 'direct'/typos with the
-    fft path ('fused' is a supported mesh engine since round 4; its shape
-    gating is covered in test_sharded.py)."""
-    from libmultiviewnative_tpu.parallel.sharded import (
+    fft path."""
+    from libmultiviewnative_jax.parallel.sharded import (
         deconvolve_sharded,
         make_mesh,
         shard_workspace,
@@ -427,8 +515,8 @@ def test_sequential_to_sharded_runs_weight_audit(rng, monkeypatch):
     """A sequential request diverted to the (simultaneous) sharded rung
     must run the unnormalized-weights audit EAGERLY at dispatch — the
     in-rung check is skipped under jit."""
-    from libmultiviewnative_tpu.deconv.dispatch import DispatchDivergenceWarning
-    from libmultiviewnative_tpu.deconv.workspace import (
+    from libmultiviewnative_jax.deconv.dispatch import DispatchDivergenceWarning
+    from libmultiviewnative_jax.deconv.workspace import (
         WeightNormalizationWarning,
     )
 
@@ -443,10 +531,10 @@ def test_sequential_to_sharded_runs_weight_audit(rng, monkeypatch):
     psi0 = jnp.full(shape, 100.0, jnp.float32)
     est_ic = estimate_workspace_bytes(bad, "auto")
     monkeypatch.setattr(
-        "libmultiviewnative_tpu.deconv.dispatch.device_capacity_bytes",
+        "libmultiviewnative_jax.deconv.dispatch.device_capacity_bytes",
         lambda device=None: int(est_ic / 2),
     )
-    import libmultiviewnative_tpu.deconv.dispatch as dd
+    import libmultiviewnative_jax.deconv.dispatch as dd
 
     # disable the z-only parity route: this test pins the DIVERGENCE path
     monkeypatch.setattr(dd, "_pick_zonly_mesh", lambda *a, **k: None)

@@ -10,7 +10,7 @@ pack is SYNTHESIZED from the trusted float64 mirror
 (scripts/generate_external_pack.py), so the loader/layout/file contract
 is exercised end-to-end on every run instead of never.  Point
 LMVN_TEST_IMAGE_PATH at a pack produced by the real Fiji plugin to hold
-the TPU build to plugin outputs instead.
+this library to plugin outputs instead.
 """
 
 import os
@@ -48,8 +48,8 @@ def pack_dir(tmp_path_factory):
 
 
 def _load_views(data):
-    from libmultiviewnative_tpu.deconv.workspace import View
-    from libmultiviewnative_tpu.io.stacks import read_tiff_stack
+    from libmultiviewnative_jax.deconv.workspace import View
+    from libmultiviewnative_jax.io.stacks import read_tiff_stack
 
     views = []
     v = 0
@@ -69,9 +69,9 @@ def _load_views(data):
 def _run(data, iters, algorithm="fft"):
     import jax.numpy as jnp
 
-    from libmultiviewnative_tpu.deconv.rl import deconvolve_jit
-    from libmultiviewnative_tpu.deconv.workspace import MultiViewData
-    from libmultiviewnative_tpu.io.stacks import read_tiff_stack
+    from libmultiviewnative_jax.deconv.rl import deconvolve_jit
+    from libmultiviewnative_jax.deconv.workspace import MultiViewData
+    from libmultiviewnative_jax.io.stacks import read_tiff_stack
 
     views = _load_views(data)
     assert views, "pack present but no views parsed"
@@ -87,7 +87,7 @@ def _run(data, iters, algorithm="fft"):
 def test_sidecars_match_stacks(pack_dir):
     """Every .tif carries a .tif.shape sidecar agreeing with its pages —
     the share/extract_shape.sh convention, read through the public API."""
-    from libmultiviewnative_tpu.io.stacks import read_shape_sidecar, read_tiff_stack
+    from libmultiviewnative_jax.io.stacks import read_shape_sidecar, read_tiff_stack
 
     tifs = sorted(f for f in os.listdir(pack_dir) if f.endswith(".tif"))
     assert tifs
@@ -102,8 +102,8 @@ def test_external_goldens(pack_dir):
     """The acceptance thresholds of test_cpu_deconvolve.cpp:53-105 against
     the pack (lambda=0.006, minValue=1e-4 per tiff_fixtures.hpp:449-450):
     2 iterations from psi_0.tif reproduce psi_1.tif."""
-    from libmultiviewnative_tpu.io.stacks import read_tiff_stack
-    from libmultiviewnative_tpu.reference.oracle import l2norm, l2norm_within_limits
+    from libmultiviewnative_jax.io.stacks import read_tiff_stack
+    from libmultiviewnative_jax.reference.oracle import l2norm, l2norm_within_limits
 
     out = _run(pack_dir, 2)
     golden = read_tiff_stack(os.path.join(pack_dir, "psi_1.tif"))
@@ -114,8 +114,8 @@ def test_external_goldens(pack_dir):
 def test_external_goldens_five_iterations(pack_dir):
     """The second reference gate: 5 iterations reproduce psi_4.tif
     (test_cpu_deconvolve.cpp:89-102, global < 70 / central < 1e-2)."""
-    from libmultiviewnative_tpu.io.stacks import read_tiff_stack
-    from libmultiviewnative_tpu.reference.oracle import l2norm, l2norm_within_limits
+    from libmultiviewnative_jax.io.stacks import read_tiff_stack
+    from libmultiviewnative_jax.reference.oracle import l2norm, l2norm_within_limits
 
     psi4 = os.path.join(pack_dir, "psi_4.tif")
     if not os.path.exists(psi4):

@@ -9,10 +9,10 @@ import pytest
 
 import jax.numpy as jnp
 
-from libmultiviewnative_tpu.deconv.interleaved import deconvolve_interleaved
-from libmultiviewnative_tpu.deconv.rl import deconvolve_jit
-from libmultiviewnative_tpu.deconv.workspace import MultiViewData
-from libmultiviewnative_tpu.utils.synthetic import gaussian_kernel
+from libmultiviewnative_jax.deconv.interleaved import deconvolve_interleaved
+from libmultiviewnative_jax.deconv.rl import deconvolve_jit
+from libmultiviewnative_jax.deconv.workspace import MultiViewData
+from libmultiviewnative_jax.utils.synthetic import gaussian_kernel
 
 
 @pytest.fixture
@@ -42,7 +42,7 @@ def _incore(psi0, views, k1, k2, ws, shape, iters, lam, algorithm):
     )
 
 
-@pytest.mark.parametrize("engine", ["fft", "dft", "fused"])
+@pytest.mark.parametrize("engine", ["fft", "dft", "auto"])
 @pytest.mark.parametrize("lam", [0.0, 0.006])
 def test_interleaved_matches_incore(problem, engine, lam):
     psi0, views, k1, k2, ws, shape = problem

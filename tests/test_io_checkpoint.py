@@ -7,11 +7,11 @@ checkpoint convention (SURVEY.md §5) as resume tests."""
 import numpy as np
 import pytest
 
-from libmultiviewnative_tpu.io.checkpoint import (
+from libmultiviewnative_jax.io.checkpoint import (
     CheckpointManager,
     deconvolve_checkpointed,
 )
-from libmultiviewnative_tpu.io.stacks import (
+from libmultiviewnative_jax.io.stacks import (
     load_stack_npz,
     read_shape_sidecar,
     read_tiff_stack,
@@ -19,8 +19,8 @@ from libmultiviewnative_tpu.io.stacks import (
     write_shape_sidecar,
     write_tiff_stack,
 )
-from libmultiviewnative_tpu.deconv.workspace import MultiViewData, Workspace, initial_psi
-from libmultiviewnative_tpu.utils.synthetic import multiview_data
+from libmultiviewnative_jax.deconv.workspace import MultiViewData, Workspace, initial_psi
+from libmultiviewnative_jax.utils.synthetic import multiview_data
 
 
 def test_tiff_roundtrip(tmp_path):

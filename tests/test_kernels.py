@@ -8,12 +8,12 @@ against the numpy mirror, including NaN/Inf/zero clamping edge cases.
 import numpy as np
 import pytest
 
-from libmultiviewnative_tpu.core.kernels import (
+from libmultiviewnative_jax.core.kernels import (
     compute_quotient,
     final_values,
     regularized_final_values,
 )
-from libmultiviewnative_tpu.reference.numpy_ref import (
+from libmultiviewnative_jax.reference.numpy_ref import (
     np_final_values,
     np_regularized_final_values,
 )

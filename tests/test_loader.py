@@ -9,18 +9,18 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from libmultiviewnative_tpu.deconv.workspace import MultiViewData
-from libmultiviewnative_tpu.parallel.loader import (
+from libmultiviewnative_jax.deconv.workspace import MultiViewData
+from libmultiviewnative_jax.parallel.loader import (
     as_reader,
     load_sharded_workspace,
     make_sharded_stack,
 )
-from libmultiviewnative_tpu.parallel.sharded import (
+from libmultiviewnative_jax.parallel.sharded import (
     deconvolve_sharded,
     make_mesh,
     shard_workspace,
 )
-from libmultiviewnative_tpu.utils.synthetic import gaussian_kernel
+from libmultiviewnative_jax.utils.synthetic import gaussian_kernel
 
 pytestmark = pytest.mark.skipif(
     jax.device_count() < 8, reason="needs 8 virtual devices"
@@ -93,7 +93,7 @@ def test_reads_are_slabwise():
 
 def test_h5_and_scalar_weights_sources(tmp_path):
     views, k1, k2, _ = _problem()
-    from libmultiviewnative_tpu.io.stacks import save_stack_h5
+    from libmultiviewnative_jax.io.stacks import save_stack_h5
 
     srcs = []
     for v, arr in enumerate(views):
@@ -118,7 +118,7 @@ def test_h5_and_scalar_weights_sources(tmp_path):
 def test_tiff_and_npz_sources(tmp_path):
     """as_reader handles whole-file formats (TIFF, NPZ) and the loader
     assembles them identically to in-memory arrays."""
-    from libmultiviewnative_tpu.io.stacks import (
+    from libmultiviewnative_jax.io.stacks import (
         save_stack_npz,
         write_tiff_stack,
     )

@@ -6,10 +6,10 @@ import pytest
 
 import jax.numpy as jnp
 
-from libmultiviewnative_tpu.deconv.rl import deconvolve_jit
-from libmultiviewnative_tpu.deconv.workspace import MultiViewData
-from libmultiviewnative_tpu.reference.oracle import rms
-from libmultiviewnative_tpu.utils.synthetic import gaussian_kernel
+from libmultiviewnative_jax.deconv.rl import deconvolve_jit
+from libmultiviewnative_jax.deconv.workspace import MultiViewData
+from libmultiviewnative_jax.reference.oracle import rms
+from libmultiviewnative_jax.utils.synthetic import gaussian_kernel
 
 
 def _base(rng, V=2, shape=(12, 12, 12), kshape=(5, 5, 5)):
@@ -67,24 +67,12 @@ def test_scalar_weights_match_full_stacks(rng, view_order):
     np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-6)
 
 
-def test_pallas_elementwise_option_matches(rng):
-    views, k1, k2 = _base(rng)
-    V, shape = 2, (12, 12, 12)
-    w = np.full((V,) + shape, 0.5, np.float32)
-    psi0 = jnp.full(shape, float(np.mean(views)), jnp.float32)
-    data = MultiViewData(jnp.asarray(views), jnp.asarray(k1),
-                         jnp.asarray(k2), jnp.asarray(w))
-    a = np.asarray(deconvolve_jit(psi0.copy(), data, 2, elementwise="jnp"))
-    b = np.asarray(deconvolve_jit(psi0.copy(), data, 2, elementwise="pallas"))
-    np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
-
-
 def test_sharded_scalar_weights(rng):
     import jax as _jax
 
     if _jax.device_count() < 4:
         pytest.skip("needs 4 devices")
-    from libmultiviewnative_tpu.parallel.sharded import (
+    from libmultiviewnative_jax.parallel.sharded import (
         deconvolve_sharded,
         make_mesh,
         shard_workspace,
@@ -105,15 +93,14 @@ def test_sharded_scalar_weights(rng):
     np.testing.assert_allclose(got, want, rtol=5e-3, atol=5e-3)
 
 
-@pytest.mark.parametrize("algorithm", ["fft", "dft", "fused"])
-def test_prepared_spectra_match_oneshot(rng, algorithm):
-    from libmultiviewnative_tpu.deconv.rl import (
+@pytest.mark.parametrize("algorithm", ["fft", "dft"])
+@pytest.mark.parametrize("shape", [(12, 12, 12), (16, 16, 16)])
+def test_prepared_spectra_match_oneshot(rng, algorithm, shape):
+    from libmultiviewnative_jax.deconv.rl import (
         deconvolve_prepared,
         prepare_workspace,
     )
 
-    # the fused Mosaic kernel needs all axes % 8 (interpret mode on CPU)
-    shape = (16, 16, 16) if algorithm == "fused" else (12, 12, 12)
     V = 2
     views, k1, k2 = _base(rng, V=V, shape=shape)
     w = np.full((V,) + shape, 0.5, np.float32)
@@ -131,13 +118,18 @@ def test_prepared_spectra_match_oneshot(rng, algorithm):
     np.testing.assert_array_equal(a, c)
 
 
-def test_prepared_fused_timelapse_skips_forwarding(rng, monkeypatch):
+@pytest.mark.parametrize(
+    "algorithm,forwarder",
+    [("fft", "prepare_spectra"), ("dft", "prepare_spectra_split")],
+)
+def test_prepared_timelapse_skips_forwarding(rng, monkeypatch, algorithm,
+                                            forwarder):
     """Time-lapse contract: with a PreparedSpectra in hand, repeated
-    deconvolve_prepared calls must NOT re-run the fused spectrum
-    forwarding (kernel_spectrum_fused) — the very per-call cost the
-    round-2 512^3 bench had to amortize (round-2 verdict, Missing #2)."""
-    import libmultiviewnative_tpu.ops.pallas.fused_dft2 as f2
-    from libmultiviewnative_tpu.deconv.rl import (
+    deconvolve_prepared calls must NOT re-run the kernel spectrum
+    forwarding — the very per-call cost the prepared path exists to
+    amortize."""
+    from libmultiviewnative_jax.deconv import rl
+    from libmultiviewnative_jax.deconv.rl import (
         deconvolve_prepared,
         prepare_workspace,
     )
@@ -149,14 +141,14 @@ def test_prepared_fused_timelapse_skips_forwarding(rng, monkeypatch):
                          jnp.asarray(k2), jnp.asarray(w))
 
     calls = {"n": 0}
-    orig = f2.kernel_spectrum_fused
+    orig = getattr(rl, forwarder)
 
     def counting(*a, **kw):
         calls["n"] += 1
         return orig(*a, **kw)
 
-    monkeypatch.setattr(f2, "kernel_spectrum_fused", counting)
-    prepared = prepare_workspace(data, shape, algorithm="fused")
+    monkeypatch.setattr(rl, forwarder, counting)
+    prepared = prepare_workspace(data, shape, algorithm=algorithm)
     prep_calls = calls["n"]
     assert prep_calls > 0  # forwarding happened at prepare time
 
@@ -172,9 +164,9 @@ def test_prepared_fused_timelapse_skips_forwarding(rng, monkeypatch):
 
 
 def test_prepare_workspace_auto_matches_serving_engine(rng):
-    """'auto' in prepare_workspace resolves like deconvolve's auto: the
-    dense-DFT plan below 256/axis on every backend (fused needs a TPU)."""
-    from libmultiviewnative_tpu.deconv.rl import prepare_workspace
+    """'auto' in prepare_workspace resolves like deconvolve's auto: on the
+    CPU backend, the dense-DFT plan up to 256/axis."""
+    from libmultiviewnative_jax.deconv.rl import prepare_workspace
 
     views, k1, k2 = _base(rng, shape=(16, 16, 16))
     data = MultiViewData(
@@ -185,17 +177,17 @@ def test_prepare_workspace_auto_matches_serving_engine(rng):
     assert prepared.algorithm == "dft"
 
 
-@pytest.mark.parametrize("algorithm", ["fft", "dft", "fused"])
-def test_prepared_simultaneous_view_order(rng, algorithm):
+@pytest.mark.parametrize("algorithm", ["fft", "dft"])
+@pytest.mark.parametrize("shape", [(12, 12, 12), (16, 16, 16)])
+def test_prepared_simultaneous_view_order(rng, algorithm, shape):
     """Round-4 contract widening: deconvolve_prepared accepts view_order
     like deconvolve_jit (it shares the whole driver), so a prepared
     time-lapse pipeline can run the shardable simultaneous math too."""
-    from libmultiviewnative_tpu.deconv.rl import (
+    from libmultiviewnative_jax.deconv.rl import (
         deconvolve_prepared,
         prepare_workspace,
     )
 
-    shape = (16, 16, 16) if algorithm == "fused" else (12, 12, 12)
     V = 2
     views, k1, k2 = _base(rng, V=V, shape=shape)
     w = np.full((V,) + shape, 0.5, np.float32)
@@ -219,7 +211,7 @@ def test_prepared_simultaneous_view_order(rng, algorithm):
 
 
 def test_prepared_rejects_shape_mismatch(rng):
-    from libmultiviewnative_tpu.deconv.rl import (
+    from libmultiviewnative_jax.deconv.rl import (
         deconvolve,
         prepare_workspace,
     )
@@ -236,98 +228,14 @@ def test_prepared_rejects_shape_mismatch(rng):
         )
 
 
-def test_fused_knob_flip_retraces(rng, monkeypatch):
-    """Advisor (round 3): flipping a fused env knob mid-process must not
-    silently reuse the stale compiled program — the public jitted drivers
-    fingerprint the knob env into their static jit key."""
-    from libmultiviewnative_tpu.deconv.rl import deconvolve_jit
+def test_prepare_workspace_rejects_direct(rng):
+    """The direct engine keeps its kernels spatial — there is nothing to
+    prepare, so an explicit request is an error, not a silent engine
+    change."""
+    from libmultiviewnative_jax.deconv.rl import prepare_workspace
 
-    shape = (16, 16, 16)
-    V = 2
-    views, k1, k2 = _base(rng, V=V, shape=shape)
-    w = np.full((V,) + shape, 0.5, np.float32)
-    psi0 = jnp.full(shape, float(np.mean(views)), jnp.float32)
+    views, k1, k2 = _base(rng, V=2, shape=(12, 12, 12))
     data = MultiViewData(jnp.asarray(views), jnp.asarray(k1),
-                         jnp.asarray(k2), jnp.asarray(w))
-
-    monkeypatch.setenv("LMVN_FUSED_TWFOLD", "1")
-    a = np.asarray(
-        deconvolve_jit(psi0.copy(), data, 1, algorithm="fused")
-    )
-    n0 = deconvolve_jit._cache_size()
-    monkeypatch.setenv("LMVN_FUSED_TWFOLD", "0")
-    b = np.asarray(
-        deconvolve_jit(psi0.copy(), data, 1, algorithm="fused")
-    )
-    assert deconvolve_jit._cache_size() > n0  # retraced, not stale-cached
-    np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
-
-
-@pytest.mark.parametrize("carry", ["0", "1"], ids=["plain", "carried"])
-def test_fused_foldx_driver_matches_default(rng, monkeypatch, carry):
-    """LMVN_FUSED_FOLDX=1 (hermitian-fold x stages) through the PUBLIC
-    driver — both the plain 5-pass chain and the carried 4-pass chain —
-    must match the default dense-x program (the fold identities are exact;
-    kernel-level proofs live in tests/test_pallas_ops.py)."""
-    from libmultiviewnative_tpu.deconv.rl import deconvolve_jit
-
-    shape = (16, 16, 16)
-    V = 2
-    views, k1, k2 = _base(rng, V=V, shape=shape)
-    w = np.full((V,) + shape, 0.5, np.float32)
-    psi0 = jnp.full(shape, float(np.mean(views)), jnp.float32)
-    data = MultiViewData(jnp.asarray(views), jnp.asarray(k1),
-                         jnp.asarray(k2), jnp.asarray(w))
-
-    monkeypatch.setenv("LMVN_FUSED_CARRY", carry)
-    outs = {}
-    for fold in ("0", "1"):
-        monkeypatch.setenv("LMVN_FUSED_FOLDX", fold)
-        outs[fold] = np.asarray(
-            deconvolve_jit(psi0.copy(), data, 2, lam=0.006,
-                           algorithm="fused")
-        )
-    np.testing.assert_allclose(outs["1"], outs["0"], rtol=2e-5, atol=2e-5)
-
-
-def test_foldx_auto_gate(monkeypatch):
-    """Round-4 default: hermitian-fold x stages at max axis >= 384 under
-    bf16_3x (12.12 vs 11.53 it/s at 512^3, docs/measure_r4.out part E),
-    dense-x below and at 'highest'; LMVN_FUSED_FOLDX=0/1 forces either."""
-    from libmultiviewnative_tpu.core.dft import set_matmul_precision
-    from libmultiviewnative_tpu.deconv.rl import _fold_enabled
-
-    monkeypatch.delenv("LMVN_FUSED_FOLDX", raising=False)
-    try:
-        set_matmul_precision("high")
-        assert _fold_enabled((512, 512, 512)) is True
-        assert _fold_enabled((256, 256, 256)) is False
-        set_matmul_precision("highest")
-        assert _fold_enabled((512, 512, 512)) is False
-        monkeypatch.setenv("LMVN_FUSED_FOLDX", "1")
-        assert _fold_enabled((16, 16, 16)) is True
-        monkeypatch.setenv("LMVN_FUSED_FOLDX", "0")
-        set_matmul_precision("high")
-        assert _fold_enabled((512, 512, 512)) is False
-    finally:
-        set_matmul_precision("highest")
-
-
-def test_forced_carry_refused_over_vmem(monkeypatch):
-    """Advisor (round 3): LMVN_FUSED_CARRY=1 at 512-class under
-    precision='highest' compiles a known-over-VMEM CUA pass — the driver
-    must refuse loudly instead."""
-    from libmultiviewnative_tpu.core.dft import set_matmul_precision
-    from libmultiviewnative_tpu.deconv.rl import _carry_enabled
-
-    monkeypatch.setenv("LMVN_FUSED_CARRY", "1")
-    set_matmul_precision("highest")
-    try:
-        with pytest.raises(ValueError, match="scoped-VMEM"):
-            _carry_enabled((512, 512, 512))
-        # small shapes and bf16_3x both stay allowed
-        assert _carry_enabled((256, 256, 256)) is True
-        set_matmul_precision("high")
-        assert _carry_enabled((512, 512, 512)) is True
-    finally:
-        set_matmul_precision("highest")
+                         jnp.asarray(k2), jnp.full((2,), 0.5, jnp.float32))
+    with pytest.raises(ValueError, match="supports fft/dft"):
+        prepare_workspace(data, (12, 12, 12), algorithm="direct")

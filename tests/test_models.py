@@ -6,15 +6,15 @@ import pytest
 
 import jax.numpy as jnp
 
-from libmultiviewnative_tpu.deconv.rl import deconvolve_jit
-from libmultiviewnative_tpu.deconv.workspace import MultiViewData, initial_psi
-from libmultiviewnative_tpu.models import RichardsonLucy, WienerFilter
-from libmultiviewnative_tpu.reference.numpy_ref import (
+from libmultiviewnative_jax.deconv.rl import deconvolve_jit
+from libmultiviewnative_jax.deconv.workspace import MultiViewData, initial_psi
+from libmultiviewnative_jax.models import RichardsonLucy, WienerFilter
+from libmultiviewnative_jax.reference.numpy_ref import (
     np_convolve_spectrum,
     np_wrap_kernel,
 )
-from libmultiviewnative_tpu.reference.oracle import rms
-from libmultiviewnative_tpu.utils.synthetic import gaussian_kernel
+from libmultiviewnative_jax.reference.oracle import rms
+from libmultiviewnative_jax.utils.synthetic import gaussian_kernel
 
 
 @pytest.fixture(scope="module")

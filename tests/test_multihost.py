@@ -17,7 +17,7 @@ import jax
 jax.config.update("jax_platforms", "cpu")
 coordinator, n, pid = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
 
-from libmultiviewnative_tpu.parallel.distributed import (
+from libmultiviewnative_jax.parallel.distributed import (
     describe_topology,
     host_local_views,
     initialize_multihost,
@@ -57,7 +57,7 @@ jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_num_cpu_devices", 4)
 coordinator, n, pid = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
 
-from libmultiviewnative_tpu.parallel.distributed import initialize_multihost
+from libmultiviewnative_jax.parallel.distributed import initialize_multihost
 
 initialize_multihost(coordinator_address=coordinator, num_processes=n,
                      process_id=pid)
@@ -67,13 +67,13 @@ import numpy as np
 import jax.numpy as jnp
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from libmultiviewnative_tpu.deconv.rl import deconvolve
-from libmultiviewnative_tpu.deconv.workspace import MultiViewData
-from libmultiviewnative_tpu.parallel.sharded import (
+from libmultiviewnative_jax.deconv.rl import deconvolve
+from libmultiviewnative_jax.deconv.workspace import MultiViewData
+from libmultiviewnative_jax.parallel.sharded import (
     deconvolve_sharded_jit,
     make_mesh,
 )
-from libmultiviewnative_tpu.utils.synthetic import gaussian_kernel
+from libmultiviewnative_jax.utils.synthetic import gaussian_kernel
 
 # identical data generated on every host (same seed)
 rng = np.random.default_rng(0)
@@ -123,7 +123,7 @@ for sh in out.addressable_shards:
 
 # ---- shard-wise loader: each process must read ONLY the views whose
 # shards it addresses (the multi-host loading contract, parallel.loader)
-from libmultiviewnative_tpu.parallel.loader import load_sharded_workspace
+from libmultiviewnative_jax.parallel.loader import load_sharded_workspace
 
 calls = []
 
@@ -153,14 +153,13 @@ for sh in out2.addressable_shards:
         np.asarray(sh.data), want[sh.index], rtol=2e-5, atol=2e-4
     )
 
-# ---- the PRODUCTION (fused Mosaic) engine through the real process
-# boundary (round-4 verdict, Missing #2): explicit algorithm='fused' runs
-# the z-block overlap-save Mosaic path in interpret mode on this CPU
+# ---- the dense-DFT engine through the real process boundary: explicit
+# algorithm='dft' runs the z-block overlap-save einsum path on this CPU
 # cluster; every process's shards must match the single-device
-# simultaneous result.  (8, 8, 8) meets the kernel's Y/X %8 constraints.
+# simultaneous result.
 out3 = deconvolve_sharded_jit(
     mk(psi0, P("z", None, None)), data, num_iterations=1, mesh=mesh,
-    lam=0.006, algorithm="fused",
+    lam=0.006, algorithm="dft",
 )
 want_f = np.asarray(
     deconvolve(
@@ -176,7 +175,7 @@ for sh in out3.addressable_shards:
     np.testing.assert_allclose(
         np.asarray(sh.data), want_f[sh.index], rtol=5e-4, atol=5e-4
     )
-print(f"proc {pid} FUSED OK", flush=True)
+print(f"proc {pid} DFT OK", flush=True)
 
 # ---- round-5: SEQUENTIAL (reference-parity) math on a z-only mesh
 # across the SAME 2-process cluster — the reference's exact view loop
@@ -230,9 +229,9 @@ def test_two_process_sharded_deconvolve(tmp_path):
     """The distributed claim, backed by the actual RL program: a 2-process
     x 4-device ('view','z') mesh runs deconvolve_sharded end to end and
     every process's output shards match the single-device simultaneous
-    result (SURVEY.md §4's missing multi-host tier).  Round 5 widened the
-    worker: the fused Mosaic engine (interpret mode) and the sequential
-    z-only parity mode each cross the process boundary too."""
+    result (SURVEY.md §4's missing multi-host tier).  The dense-DFT
+    engine and the sequential z-only parity mode each cross the process
+    boundary too."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     coordinator = f"127.0.0.1:{_free_port()}"
     env = dict(os.environ)
@@ -260,7 +259,7 @@ def test_two_process_sharded_deconvolve(tmp_path):
     for p, out in zip(procs, outs):
         assert p.returncode == 0, out[-2000:]
     for pid in (0, 1):
-        for tag in ("FUSED OK", "DECONV OK"):
+        for tag in ("DFT OK", "DECONV OK"):
             assert any(f"proc {pid} {tag}" in o for o in outs), (pid, tag)
 
 

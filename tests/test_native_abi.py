@@ -12,10 +12,10 @@ import subprocess
 import numpy as np
 import pytest
 
-from libmultiviewnative_tpu import api
-from libmultiviewnative_tpu.utils.synthetic import gaussian_kernel
+from libmultiviewnative_jax import api
+from libmultiviewnative_jax.utils.synthetic import gaussian_kernel
 
-native = pytest.importorskip("libmultiviewnative_tpu.native_client")
+native = pytest.importorskip("libmultiviewnative_jax.native_client")
 
 if shutil.which("g++") is None:
     pytest.skip("no g++ toolchain", allow_module_level=True)

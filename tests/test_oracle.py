@@ -5,7 +5,7 @@ hand-built expectations before it is trusted to judge the engines)."""
 import numpy as np
 import pytest
 
-from libmultiviewnative_tpu.reference.oracle import (
+from libmultiviewnative_jax.reference.oracle import (
     direct_convolve,
     l1norm,
     l2norm,

@@ -1,10 +1,11 @@
-"""Matmul precision must be part of program identity (VERDICT r1 weak #6):
-switching bf16_3x <-> f32 for an already-compiled shape must produce a NEW
-program, never silently reuse code traced at the other precision.
+"""Matmul precision must be part of program identity: switching 'high'
+(TF32 on a GPU) <-> 'highest' (float32) for an already-compiled shape must
+produce a NEW program, never silently reuse code traced at the other
+precision.
 
 (On the CPU backend both precisions lower to the same f32 math, so the
 observable contract here is RETRACE/RECOMPILE — trace counting and jit
-cache size — not numeric divergence; on TPU the recompile is what makes
+cache size — not numeric divergence; on a GPU the recompile is what makes
 the numerics follow the setting.)
 """
 
@@ -14,8 +15,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from libmultiviewnative_tpu.core import dft
-from libmultiviewnative_tpu.core.dft import set_matmul_precision
+from libmultiviewnative_jax.core import dft
+from libmultiviewnative_jax.core.dft import set_matmul_precision
 
 
 @pytest.fixture(autouse=True)
@@ -48,9 +49,9 @@ def test_switch_retraces_same_shape():
 
 
 def test_deconvolve_jit_cache_keyed_on_precision(rng):
-    from libmultiviewnative_tpu.deconv.rl import deconvolve_jit
-    from libmultiviewnative_tpu.deconv.workspace import MultiViewData
-    from libmultiviewnative_tpu.utils.synthetic import gaussian_kernel
+    from libmultiviewnative_jax.deconv.rl import deconvolve_jit
+    from libmultiviewnative_jax.deconv.workspace import MultiViewData
+    from libmultiviewnative_jax.utils.synthetic import gaussian_kernel
 
     V, shape = 2, (8, 8, 8)
     k1 = np.stack([gaussian_kernel((3, 3, 3), 1.0 + 0.2 * v) for v in range(V)])

@@ -6,7 +6,7 @@ import os
 
 import numpy as np
 
-from libmultiviewnative_tpu.utils.trace import annotate, profile_region
+from libmultiviewnative_jax.utils.trace import annotate, profile_region
 
 
 def test_profile_region_writes_trace(tmp_path):

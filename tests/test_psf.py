@@ -11,18 +11,18 @@ problem, and every compound mode must reduce to plain adjoint RL at V=1.
 import numpy as np
 import pytest
 
-from libmultiviewnative_tpu.deconv.workspace import MultiViewData
-from libmultiviewnative_tpu.deconv.rl import deconvolve_jit
-from libmultiviewnative_tpu.reference.numpy_ref import (
+from libmultiviewnative_jax.deconv.workspace import MultiViewData
+from libmultiviewnative_jax.deconv.rl import deconvolve_jit
+from libmultiviewnative_jax.reference.numpy_ref import (
     np_convolve_spectrum,
     np_wrap_kernel,
 )
-from libmultiviewnative_tpu.utils.psf import (
+from libmultiviewnative_jax.utils.psf import (
     compound_kernels,
     flip_adjoint,
     normalize_l1,
 )
-from libmultiviewnative_tpu.utils.synthetic import gaussian_kernel
+from libmultiviewnative_jax.utils.synthetic import gaussian_kernel
 
 COMPOUND = ["efficient_bayesian", "optimization_i", "optimization_ii"]
 

@@ -137,11 +137,11 @@ def _reference_rl(L, psi, views, k1_hats, k2_hats, weights, iters, lam, minv):
 def test_deconvolve_matches_reference_compiled_chain(ref_kernels, lam, rng):
     import jax.numpy as jnp
 
-    from libmultiviewnative_tpu.deconv.rl import deconvolve_jit
-    from libmultiviewnative_tpu.deconv.workspace import MultiViewData
-    from libmultiviewnative_tpu.reference.numpy_ref import np_wrap_kernel
-    from libmultiviewnative_tpu.reference.oracle import rms
-    from libmultiviewnative_tpu.utils.synthetic import gaussian_kernel
+    from libmultiviewnative_jax.deconv.rl import deconvolve_jit
+    from libmultiviewnative_jax.deconv.workspace import MultiViewData
+    from libmultiviewnative_jax.reference.numpy_ref import np_wrap_kernel
+    from libmultiviewnative_jax.reference.oracle import rms
+    from libmultiviewnative_jax.utils.synthetic import gaussian_kernel
 
     V, shape = 3, (16, 12, 10)
     views = rng.gamma(2.0, 20.0, (V,) + shape).astype(np.float32)
@@ -187,7 +187,7 @@ def test_clamp_order_matches_reference_exactly(ref_kernels, rng):
     wrong silently."""
     import jax.numpy as jnp
 
-    from libmultiviewnative_tpu.core.kernels import rl_update
+    from libmultiviewnative_jax.core.kernels import rl_update
 
     n = 4096
     psi = rng.gamma(2.0, 20.0, n).astype(np.float32)

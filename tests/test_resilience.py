@@ -7,14 +7,14 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from libmultiviewnative_tpu.deconv.workspace import Workspace, initial_psi
-from libmultiviewnative_tpu.io.checkpoint import (
+from libmultiviewnative_jax.deconv.workspace import Workspace, initial_psi
+from libmultiviewnative_jax.io.checkpoint import (
     CheckpointManager,
     deconvolve_checkpointed,
     deconvolve_resilient,
 )
-from libmultiviewnative_tpu.utils.synthetic import multiview_data
-from libmultiviewnative_tpu.utils.trace import debug_context
+from libmultiviewnative_jax.utils.synthetic import multiview_data
+from libmultiviewnative_jax.utils.trace import debug_context
 
 
 def _problem():
@@ -28,7 +28,7 @@ def test_resilient_recovers_from_midrun_crash(tmp_path, monkeypatch):
     psi0, data = _problem()
     mgr = CheckpointManager(str(tmp_path / "r"))
 
-    import libmultiviewnative_tpu.io.checkpoint as ckpt
+    import libmultiviewnative_jax.io.checkpoint as ckpt
 
     real = ckpt.deconvolve_checkpointed
     calls = {"n": 0}
@@ -39,7 +39,7 @@ def test_resilient_recovers_from_midrun_crash(tmp_path, monkeypatch):
             # simulate a device crash after 2 of 4 iterations: run the
             # first chunk for real, then die
             real(args[0], args[1], 2, args[3], **kw)
-            raise RuntimeError("TPU worker process crashed or restarted")
+            raise RuntimeError("device worker process crashed or restarted")
         return real(*args, **kw)
 
     monkeypatch.setattr(ckpt, "deconvolve_checkpointed", flaky)
@@ -58,7 +58,7 @@ def test_resilient_recovers_from_midrun_crash(tmp_path, monkeypatch):
 def test_resilient_gives_up_after_max_retries(tmp_path, monkeypatch):
     psi0, data = _problem()
     mgr = CheckpointManager(str(tmp_path / "g"))
-    import libmultiviewnative_tpu.io.checkpoint as ckpt
+    import libmultiviewnative_jax.io.checkpoint as ckpt
 
     def always_dead(*a, **k):
         raise RuntimeError("dead device")

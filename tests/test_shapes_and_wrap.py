@@ -8,7 +8,7 @@ and the wrap semantics of inc/padd_utils.h:11-40.
 import numpy as np
 import pytest
 
-from libmultiviewnative_tpu.core.shapes import (
+from libmultiviewnative_jax.core.shapes import (
     halo_widths,
     is_fast_size,
     kernel_center,
@@ -16,12 +16,12 @@ from libmultiviewnative_tpu.core.shapes import (
     zero_pad_extents,
     zero_pad_offsets,
 )
-from libmultiviewnative_tpu.core.wrap import (
+from libmultiviewnative_jax.core.wrap import (
     crop_at_offsets,
     embed_at_offsets,
     wrap_kernel,
 )
-from libmultiviewnative_tpu.reference.numpy_ref import np_wrap_kernel
+from libmultiviewnative_jax.reference.numpy_ref import np_wrap_kernel
 
 
 def test_zero_pad_extents_and_offsets():

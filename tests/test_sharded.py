@@ -12,18 +12,18 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh, PartitionSpec as P
 
-from libmultiviewnative_tpu.core.convolve import fft_convolve3d
-from libmultiviewnative_tpu.core.shapes import halo_widths
-from libmultiviewnative_tpu.deconv.rl import deconvolve_jit
-from libmultiviewnative_tpu.deconv.workspace import MultiViewData
-from libmultiviewnative_tpu.parallel.halo import convolve_zblock, zblock_kernel_spectrum
-from libmultiviewnative_tpu.parallel.sharded import (
+from libmultiviewnative_jax.core.convolve import fft_convolve3d
+from libmultiviewnative_jax.core.shapes import halo_widths
+from libmultiviewnative_jax.deconv.rl import deconvolve_jit
+from libmultiviewnative_jax.deconv.workspace import MultiViewData
+from libmultiviewnative_jax.parallel.halo import convolve_zblock, zblock_kernel_spectrum
+from libmultiviewnative_jax.parallel.sharded import (
     deconvolve_sharded,
     make_mesh,
     shard_workspace,
 )
-from libmultiviewnative_tpu.reference.oracle import rms
-from libmultiviewnative_tpu.utils.synthetic import gaussian_kernel
+from libmultiviewnative_jax.reference.oracle import rms
+from libmultiviewnative_jax.utils.synthetic import gaussian_kernel
 
 shard_map = jax.shard_map
 
@@ -162,15 +162,15 @@ def test_sharded_dft_engine_matches_fft(algorithm):
 
 
 # ---------------------------------------------------------------------------
-# fused Mosaic engine on the mesh (round-4: the production engine must
-# survive scaling — one engine serves every strategy, the reference's
-# inplace_convolve_on_device contract, inc/gpu_convolve.cuh:113-142).
-# CPU mesh runs the Pallas kernels in interpret mode.
+# Mesh geometries on both spectral engines: view-only meshes (each device
+# holds whole volumes), z-block meshes with per-voxel or scalar weights,
+# and lane-realistic / misaligned Y-X planes (thin (…, 8, 8) planes miss
+# layout bugs of real widths).
 # ---------------------------------------------------------------------------
 
 
-def _fused_problem(num_views, shape, seed=9, kshape=(3, 3, 3),
-                   scalar_weights=False):
+def _mesh_problem(num_views, shape, seed=9, kshape=(3, 3, 3),
+                  scalar_weights=False):
     rng = np.random.default_rng(seed)
     views = rng.gamma(2.0, 20.0, (num_views,) + shape).astype(np.float32)
     k1 = np.stack(
@@ -190,130 +190,78 @@ def _fused_problem(num_views, shape, seed=9, kshape=(3, 3, 3),
     )
 
 
-def _run_sharded_vs_single(data, shape, vp, zp, iters=2, tol=1e-4,
-                           n_dev=None):
+_GEOMETRIES = {
+    # name: (views, shape, vp, zp, scalar_weights, iterations)
+    "view-only": (4, (16, 16, 16), 4, 1, False, 2),
+    "zblock": (2, (16, 16, 16), 2, 4, False, 2),
+    "zblock-scalar-weights": (2, (16, 16, 16), 2, 4, True, 2),
+    "wide-lanes-128": (2, (16, 128, 128), 2, 4, False, 1),
+    "misaligned-y-136": (2, (16, 136, 16), 2, 4, False, 1),
+}
+
+
+@pytest.mark.parametrize("algorithm", ["fft", "dft"])
+@pytest.mark.parametrize("geometry", sorted(_GEOMETRIES))
+def test_sharded_geometry_matches_single_device(geometry, algorithm):
+    V, shape, vp, zp, scalar, iters = _GEOMETRIES[geometry]
+    data = _mesh_problem(V, shape, scalar_weights=scalar)
     psi0 = jnp.full(shape, float(jnp.mean(data.views)), jnp.float32)
     want = np.asarray(
         deconvolve_jit(
             psi0.copy(), data, num_iterations=iters,
-            view_order="simultaneous",
+            view_order="simultaneous", algorithm=algorithm,
         )
     )
-    devices = np.asarray(jax.devices()[: vp * zp])
-    mesh = make_mesh(view_parallel=vp, z_parallel=zp, devices=devices)
+    mesh = make_mesh(
+        view_parallel=vp, z_parallel=zp,
+        devices=np.asarray(jax.devices()[: vp * zp]),
+    )
     psi_s, data_s = shard_workspace(data, psi0, mesh)
     out = np.asarray(
-        deconvolve_sharded(
-            psi_s, data_s, iters, mesh, algorithm="fused"
-        )
+        deconvolve_sharded(psi_s, data_s, iters, mesh, algorithm=algorithm)
     )
     assert np.all(np.isfinite(out))
-    assert rms(out, want) < tol, rms(out, want)
+    assert rms(out, want) < 1e-4, rms(out, want)
 
 
-def test_sharded_fused_view_only_matches_single_device():
-    """z axis == 1: per-device full volumes run the production 5-pass
-    fully-fused RL step; weighted deltas psum over 'view'."""
-    shape = (16, 16, 16)
-    data = _fused_problem(4, shape)
-    _run_sharded_vs_single(data, shape, vp=4, zp=1)
-
-
-def test_sharded_fused_zblock_matches_single_device():
-    """z axis > 1: overlap-save fused convolves at the %8-padded
-    halo-extended extent (3^3 kernel -> ext 6 -> padded 8)."""
-    shape = (16, 16, 16)
-    data = _fused_problem(2, shape)
-    _run_sharded_vs_single(data, shape, vp=2, zp=4)
-
-
-def test_sharded_fused_zblock_scalar_weights():
-    shape = (16, 16, 16)
-    data = _fused_problem(2, shape, scalar_weights=True)
-    _run_sharded_vs_single(data, shape, vp=2, zp=4)
-
-
-def test_sharded_fused_wide_lanes():
-    """Lane-realistic geometry (Y = X = 128): the plane-batched fused
-    path, on the mesh, 1 iteration (round-3 lesson: thin (…, 8, 8)
-    geometry misses real lane-layout bugs)."""
-    shape = (16, 128, 128)
-    data = _fused_problem(2, shape)
-    _run_sharded_vs_single(data, shape, vp=2, zp=4, iters=1)
-
-
-def test_sharded_fused_misaligned_y():
-    """Y = 136 (%8 but not %128): the per-plane lane-misaligned routing,
-    on the mesh (the 264-class failure shape family from the round-3
-    stability ladder)."""
-    shape = (16, 136, 16)
-    data = _fused_problem(2, shape)
-    _run_sharded_vs_single(data, shape, vp=2, zp=4, iters=1)
-
-
-@pytest.mark.parametrize("zp", [1, 4], ids=["view-only", "zblock"])
-def test_sharded_fused_foldx_matches_single_device(monkeypatch, zp):
-    """LMVN_FUSED_FOLDX=1 threads the hermitian-fold x stages through
-    BOTH mesh strategies (full-volume fused step and overlap-save z-block
-    convolves) — one engine policy serves every strategy (round-4: fold
-    is the 512-class default, measure_r4.out part E)."""
-    monkeypatch.setenv("LMVN_FUSED_FOLDX", "1")
-    shape = (16, 16, 16)
-    data = _fused_problem(2 if zp > 1 else 4, shape)
-    _run_sharded_vs_single(data, shape, vp=2 if zp > 1 else 4, zp=zp)
-
-
-def test_sharded_jit_knob_flip_retraces(monkeypatch):
-    """The sharded jitted driver must key its jit cache on the fused env
-    knobs (which now include the mesh-relevant fold default) — same
-    contract as the in-core drivers (advisor, round 3)."""
-    from libmultiviewnative_tpu.parallel.sharded import (
-        deconvolve_sharded_jit,
-    )
-
-    shape = (16, 16, 16)
-    data = _fused_problem(2, shape)
-    psi0 = jnp.full(shape, float(jnp.mean(data.views)), jnp.float32)
-    mesh = make_mesh(
-        view_parallel=2, z_parallel=1,
-        devices=np.asarray(jax.devices()[:2]),
-    )
-    psi_s, data_s = shard_workspace(data, psi0, mesh)
-
-    monkeypatch.setenv("LMVN_FUSED_FOLDX", "0")
-    a = np.asarray(
-        deconvolve_sharded_jit(psi_s + 0, data_s, 1, mesh, algorithm="fused")
-    )
-    n0 = deconvolve_sharded_jit._cache_size()
-    monkeypatch.setenv("LMVN_FUSED_FOLDX", "1")
-    b = np.asarray(
-        deconvolve_sharded_jit(psi_s + 0, data_s, 1, mesh, algorithm="fused")
-    )
-    assert deconvolve_sharded_jit._cache_size() > n0
-    np.testing.assert_allclose(a, b, rtol=2e-5, atol=2e-5)
-
-
-def test_sharded_fused_rejects_ineligible_geometry():
-    """Odd X violates the Mosaic layout constraints — an explicit fused
-    request must raise, not silently demote (dispatch demotes loudly)."""
-    shape = (16, 8, 9)
-    data = _fused_problem(2, shape)
-    psi0 = jnp.zeros(shape, jnp.float32)
+def test_sharded_rejects_direct():
+    """The mesh runs the spectral engines only: an explicit 'direct'
+    request must raise, not silently become fft."""
+    data = _mesh_problem(2, (16, 8, 8))
+    psi0 = jnp.zeros((16, 8, 8), jnp.float32)
     mesh = make_mesh(view_parallel=2, z_parallel=4)
     psi_s, data_s = shard_workspace(data, psi0, mesh)
-    with pytest.raises(ValueError, match="fused engine requires"):
-        deconvolve_sharded(psi_s, data_s, 1, mesh, algorithm="fused")
+    with pytest.raises(ValueError, match="sharded rung supports"):
+        deconvolve_sharded(psi_s, data_s, 1, mesh, algorithm="direct")
 
 
-def test_sharded_auto_never_fused_on_cpu():
-    """'auto' must not route to interpret-mode fused on the CPU mesh
-    (mirrors deconv.rl.fused_eligible's backend gate)."""
-    from libmultiviewnative_tpu.parallel.sharded import (
-        sharded_fused_eligible,
-    )
+@pytest.mark.parametrize("backend,want", [("cpu", "dft"), ("gpu", "fft")])
+def test_sharded_auto_resolves_through_policy(monkeypatch, backend, want):
+    """'auto' on the mesh resolves through the one engine policy at the
+    halo-extended block extent — and the jitted driver does no string
+    matching of its own."""
+    from libmultiviewnative_jax.deconv import policy
+    from libmultiviewnative_jax.parallel import sharded
 
+    seen = []
+    real = policy.resolve_algorithm
+
+    def spy(algorithm, spatial, backend_=None):
+        out = real(algorithm, spatial, backend_ or backend)
+        seen.append((algorithm, tuple(spatial), out))
+        return out
+
+    monkeypatch.setattr(sharded, "resolve_algorithm", spy)
+    data = _mesh_problem(2, (16, 8, 8))
+    psi0 = jnp.full((16, 8, 8), 40.0, jnp.float32)
     mesh = make_mesh(view_parallel=2, z_parallel=4)
-    assert not sharded_fused_eligible((256, 256, 256), mesh)
+    psi_s, data_s = shard_workspace(data, psi0, mesh)
+    out = np.asarray(
+        sharded.deconvolve_sharded(psi_s, data_s, 1, mesh, algorithm="auto")
+    )
+    assert np.all(np.isfinite(out))
+    # block 4 + halo (1, 1) = extent 6 along z
+    assert seen == [("auto", (6, 8, 8), want)]
 
 
 # ---------------------------------------------------------------------------
@@ -340,11 +288,10 @@ def _seq_problem(num_views=3, shape=(16, 16, 16), seed=13, kshape=(5, 5, 5)):
     )
 
 
-@pytest.mark.parametrize("algorithm", ["fft", "dft", "fused"])
+@pytest.mark.parametrize("algorithm", ["fft", "dft"])
 def test_sharded_sequential_matches_parity_math(algorithm):
     """z-only mesh sequential == single-device sequential (the reference
-    math), rms < 1e-5 — the round-4 verdict's 'done' bar.  The fused
-    engine runs its overlap-save z-block path in interpret mode here."""
+    math), rms < 1e-5 on the fft engine."""
     shape = (16, 16, 16)
     data = _seq_problem(shape=shape)
     psi0 = jnp.full(shape, float(jnp.mean(data.views)), jnp.float32)
@@ -366,7 +313,7 @@ def test_sharded_sequential_matches_parity_math(algorithm):
         )
     )
     assert np.all(np.isfinite(out))
-    # the verdict bar (rms < 1e-5) for the fft/fused engines; the dft
+    # rms < 1e-5 for the fft engine; the dft
     # engine's dense einsum transforms at halo-extended extents carry
     # slightly different f32 roundoff (same 5e-5 class as the streamed
     # rung's overlap-save comparisons in test_dispatch.py)
@@ -442,42 +389,35 @@ def test_sharded_sequential_scalar_weights_and_tikhonov():
     assert rms(out, want) < 1e-5, rms(out, want)
 
 
+@pytest.mark.parametrize("algorithm", ["fft", "dft"])
 @pytest.mark.parametrize("vp,zp,view_order", [
     (2, 2, "simultaneous"), (1, 4, "sequential"),
 ])
-def test_sharded_fused_splitx_matches_single_device(monkeypatch, vp, zp,
-                                                    view_order):
-    """LMVN_FUSED_SPLITX=1 (the 256-class default under bf16_3x since
-    round 5) threads the hermitian DIF-split x stages through the mesh
-    strategies too — X=256 local extents, z-block overlap-save, both
-    view orders (sequential = the z-only parity mode)."""
-    monkeypatch.setenv("LMVN_FUSED_SPLITX", "1")
-    from libmultiviewnative_tpu.ops.pallas.fused_dft2 import make_fused_plan
-
-    make_fused_plan.cache_clear()
-    try:
-        shape = (16, 16, 256)
-        V = 2 if view_order == "sequential" else vp * 2
-        data = _fused_problem(V, shape)
-        psi0 = jnp.full(shape, float(jnp.mean(data.views)), jnp.float32)
-        want = np.asarray(
-            deconvolve_jit(
-                psi0.copy(), data, num_iterations=2, lam=0.006,
-                view_order=view_order, algorithm="fft",
-            )
+def test_sharded_long_x_matches_single_device(vp, zp, view_order, algorithm):
+    """X=256 local extents through both mesh strategies — z-block
+    overlap-save, both view orders (sequential = the z-only parity mode) —
+    against the single-device driver in the same view order.  These are
+    the mesh forms the 4-device chip check runs at 512^3."""
+    shape = (16, 16, 256)
+    V = 2 if view_order == "sequential" else vp * 2
+    data = _mesh_problem(V, shape)
+    psi0 = jnp.full(shape, float(jnp.mean(data.views)), jnp.float32)
+    want = np.asarray(
+        deconvolve_jit(
+            psi0.copy(), data, num_iterations=2, lam=0.006,
+            view_order=view_order, algorithm="fft",
         )
-        mesh = make_mesh(
-            view_parallel=vp, z_parallel=zp,
-            devices=np.asarray(jax.devices()[: vp * zp]),
+    )
+    mesh = make_mesh(
+        view_parallel=vp, z_parallel=zp,
+        devices=np.asarray(jax.devices()[: vp * zp]),
+    )
+    psi_s, data_s = shard_workspace(data, psi0, mesh)
+    out = np.asarray(
+        deconvolve_sharded(
+            psi_s, data_s, 2, mesh, lam=0.006, algorithm=algorithm,
+            view_order=view_order,
         )
-        psi_s, data_s = shard_workspace(data, psi0, mesh)
-        out = np.asarray(
-            deconvolve_sharded(
-                psi_s, data_s, 2, mesh, lam=0.006, algorithm="fused",
-                view_order=view_order,
-            )
-        )
-        assert np.all(np.isfinite(out))
-        assert rms(out, want) < 1e-4, rms(out, want)
-    finally:
-        make_fused_plan.cache_clear()
+    )
+    assert np.all(np.isfinite(out))
+    assert rms(out, want) < 1e-4, rms(out, want)

@@ -7,11 +7,11 @@ import pytest
 
 import jax.numpy as jnp
 
-from libmultiviewnative_tpu.deconv.rl import deconvolve_jit
-from libmultiviewnative_tpu.deconv.streamed import deconvolve_streamed
-from libmultiviewnative_tpu.deconv.workspace import MultiViewData
-from libmultiviewnative_tpu.reference.oracle import rms
-from libmultiviewnative_tpu.utils.synthetic import gaussian_kernel
+from libmultiviewnative_jax.deconv.rl import deconvolve_jit
+from libmultiviewnative_jax.deconv.streamed import deconvolve_streamed
+from libmultiviewnative_jax.deconv.workspace import MultiViewData
+from libmultiviewnative_jax.reference.oracle import rms
+from libmultiviewnative_jax.utils.synthetic import gaussian_kernel
 
 
 @pytest.mark.parametrize("chunk_z", [4, 5, 16])
@@ -48,7 +48,7 @@ def test_streamed_from_h5_disk(tmp_path, rng):
     performs)."""
     import h5py
 
-    from libmultiviewnative_tpu.io.stacks import save_stack_h5
+    from libmultiviewnative_jax.io.stacks import save_stack_h5
 
     shape = (16, 12, 12)
     V = 2
@@ -86,7 +86,7 @@ def test_pick_chunk_z_smooth_for_every_kernel():
     kernel pass, not just the max-halo one (the repo-standard 21^3/25^3
     pair at 512^3 regressed exactly this way: chunk 232 made the 25^3
     pass 256 but the 21^3 pass 252 = 2^2*3^2*7)."""
-    from libmultiviewnative_tpu.deconv.streamed import _smooth, pick_chunk_z
+    from libmultiviewnative_jax.deconv.streamed import _smooth, pick_chunk_z
 
     pairs = [(10, 10), (12, 12)]  # 21^3 and 25^3 halos
     c = pick_chunk_z(512, pairs)

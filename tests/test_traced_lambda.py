@@ -1,25 +1,23 @@
-"""Traced λ/min_value contract (round-5 verdict #5): on the fft/dft/direct
-engines the regularization constants are RUNTIME OPERANDS — a λ sweep (the
-tuning loop the prepared path exists for) compiles ONE program per shape,
-like the reference's plan store which never re-plans when λ changes
-(/root/reference/inc/plan_store.h:25-235; λ lives in the runtime workspace
-struct, inc/multiviewnative.h:28-35).  Only the fused Mosaic engine keeps
-them trace-static (compile-time epilogue constants)."""
+"""Traced λ/min_value contract: on every engine the regularization
+constants are RUNTIME OPERANDS — a λ sweep (the tuning loop the prepared
+path exists for) compiles ONE program per shape, like the reference's plan
+store which never re-plans when λ changes (reference
+inc/plan_store.h:25-235; λ lives in the runtime workspace struct,
+inc/multiviewnative.h:28-35)."""
 
 import numpy as np
 import pytest
 
 import jax.numpy as jnp
 
-from libmultiviewnative_tpu.deconv.rl import (
-    _traced_lam_ok,
+from libmultiviewnative_jax.deconv.rl import (
     deconvolve,
     deconvolve_jit,
     deconvolve_prepared,
     prepare_workspace,
 )
-from libmultiviewnative_tpu.deconv.workspace import MultiViewData
-from libmultiviewnative_tpu.utils.synthetic import gaussian_kernel
+from libmultiviewnative_jax.deconv.workspace import MultiViewData
+from libmultiviewnative_jax.utils.synthetic import gaussian_kernel
 
 
 def _problem(rng, V=2, shape=(12, 12, 12)):
@@ -90,29 +88,27 @@ def test_prepared_lambda_sweep_compiles_once(rng, algorithm):
     assert deconvolve_prepared._cache_size() == n0
 
 
-def test_fused_engine_stays_static():
-    """The fused Mosaic engine bakes λ into its pass epilogues: requests
-    that resolve to it must keep the static-λ driver (documented
-    behavior), i.e. the traced-λ route must decline them."""
-    assert not _traced_lam_ok((256, 256, 256), "fused", 3, "jnp")
-    assert not _traced_lam_ok((16, 16, 16), "fused", 3, "jnp")
-    # pallas elementwise option embeds the constants too
-    assert not _traced_lam_ok((16, 16, 16), "fft", 3, "pallas")
-    # everything else rides the traced program
-    assert _traced_lam_ok((16, 16, 16), "fft", 3, "jnp")
-    assert _traced_lam_ok((16, 16, 16), "dft", 3, "jnp")
-    assert _traced_lam_ok((16, 16, 16), "direct", 3, "jnp")
-    assert _traced_lam_ok((16, 16, 16), "auto", 3, "jnp")
+@pytest.mark.parametrize("algorithm", ["fft", "dft", "direct", "auto"])
+def test_every_engine_takes_traced_lambda(rng, algorithm):
+    """Every engine rides the traced-λ program: a λ/min_value sweep
+    through the public driver adds at most one compiled program."""
+    data, psi0 = _problem(rng)
+    deconvolve_jit(psi0.copy(), data, 1, lam=0.0, algorithm=algorithm)
+    n0 = deconvolve_jit._cache_size()
+    for lam, mv in ((0.006, 1e-4), (0.05, 1e-3)):
+        deconvolve_jit(
+            psi0.copy(), data, 1, lam=lam, min_value=mv, algorithm=algorithm
+        )
+    assert deconvolve_jit._cache_size() == n0
 
 
-def test_fused_interpret_lambda_matches_traced(rng):
-    """Cross-engine λ agreement: the fused (static-λ, interpret-mode) and
-    fft (traced-λ) engines agree for a Tikhonov λ, so the two λ paths
-    implement the same math."""
+def test_direct_lambda_matches_traced_fft(rng):
+    """Cross-engine λ agreement: the direct (stencil) and fft engines
+    agree for a Tikhonov λ, so the λ path is the same math on both."""
     data, psi0 = _problem(rng, shape=(16, 16, 16))
     a = np.asarray(
         deconvolve_jit(
-            psi0.copy(), data, 2, lam=0.006, algorithm="fused"
+            psi0.copy(), data, 2, lam=0.006, algorithm="direct"
         )
     )
     b = np.asarray(
@@ -132,7 +128,7 @@ def test_sharded_lambda_sweep_compiles_once(rng, view_order):
     import jax
     import numpy as np
 
-    from libmultiviewnative_tpu.parallel.sharded import (
+    from libmultiviewnative_jax.parallel.sharded import (
         deconvolve_sharded_jit,
         make_mesh,
         shard_workspace,
@@ -176,7 +172,7 @@ def test_sharded_lambda_sweep_compiles_once(rng, view_order):
 def test_history_lambda_sweep_compiles_once(rng):
     """deconvolve_with_history shares the traced-λ contract (a
     convergence-monitored λ-tuning sweep compiles once)."""
-    from libmultiviewnative_tpu.deconv.rl import deconvolve_with_history
+    from libmultiviewnative_jax.deconv.rl import deconvolve_with_history
 
     data, psi0 = _problem(rng)
     deconvolve_with_history(psi0.copy(), data, 3, lam=0.0)
@@ -193,10 +189,10 @@ def test_history_lambda_sweep_compiles_once(rng):
 
 def test_streamed_rung_lambda_sweep_compiles_once(rng):
     """Round 5: the streamed out-of-core rung's chunk programs also take
-    λ/min_value as runtime operands (jnp elementwise) — a λ sweep reuses
+    λ/min_value as runtime operands — a λ sweep reuses
     one compiled chunk program per extent."""
-    from libmultiviewnative_tpu.deconv.streamed import (
-        _update_chunk_fns,
+    from libmultiviewnative_jax.deconv.streamed import (
+        _UPD_FNS,
         deconvolve_streamed,
     )
 
@@ -207,7 +203,7 @@ def test_streamed_rung_lambda_sweep_compiles_once(rng):
     w = [np.full(shape, 1.0 / V, np.float32)] * V
     psi0 = np.full(shape, float(views.mean()), np.float32)
 
-    fns = _update_chunk_fns("jnp")
+    fns = _UPD_FNS
     outs = {}
     n0 = None
     for lam in (0.0, 0.006, 0.05):

@@ -4,9 +4,9 @@ at src/multiviewnative.cpp:18-58 and the LMVN_TRACE machinery)."""
 import numpy as np
 import pytest
 
-from libmultiviewnative_tpu.deconv.workspace import MultiViewData
-from libmultiviewnative_tpu.utils.trace import profile_region, trace_enabled
-from libmultiviewnative_tpu.utils.validate import check_finite, validate_workspace
+from libmultiviewnative_jax.deconv.workspace import MultiViewData
+from libmultiviewnative_jax.utils.trace import profile_region, trace_enabled
+from libmultiviewnative_jax.utils.validate import check_finite, validate_workspace
 
 
 def _data(bad=None):

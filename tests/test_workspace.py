@@ -5,14 +5,14 @@ import pytest
 
 import jax.numpy as jnp
 
-from libmultiviewnative_tpu.deconv.workspace import (
+from libmultiviewnative_jax.deconv.workspace import (
     MultiViewData,
     View,
     Workspace,
     initial_psi,
     pad_kernel_to,
 )
-from libmultiviewnative_tpu.utils.synthetic import gaussian_kernel, multiview_data
+from libmultiviewnative_jax.utils.synthetic import gaussian_kernel, multiview_data
 
 
 def test_workspace_knob_defaults():
@@ -64,7 +64,7 @@ class TestShapePolicy:
     implemented as shape_policy='common'."""
 
     def _hetero_views(self, rng):
-        from libmultiviewnative_tpu.utils.synthetic import gaussian_kernel
+        from libmultiviewnative_jax.utils.synthetic import gaussian_kernel
 
         shapes = [(12, 10, 10), (10, 12, 10), (10, 10, 12)]
         views = []
@@ -97,9 +97,9 @@ class TestShapePolicy:
         manually cropped workspace, and both track the float64 mirror."""
         import jax.numpy as jnp
 
-        from libmultiviewnative_tpu.deconv.rl import deconvolve_jit
-        from libmultiviewnative_tpu.reference.numpy_ref import np_deconvolve
-        from libmultiviewnative_tpu.reference.oracle import rms
+        from libmultiviewnative_jax.deconv.rl import deconvolve_jit
+        from libmultiviewnative_jax.reference.numpy_ref import np_deconvolve
+        from libmultiviewnative_jax.reference.oracle import rms
 
         views = self._hetero_views(rng)
         data = MultiViewData.from_views(views, shape_policy="common")
@@ -138,7 +138,7 @@ class TestShapePolicy:
 
 class TestWeightNormalizationAudit:
     def _data(self, rng, wscale):
-        from libmultiviewnative_tpu.utils.synthetic import gaussian_kernel
+        from libmultiviewnative_jax.utils.synthetic import gaussian_kernel
 
         V, shape = 2, (8, 8, 8)
         k1 = np.stack(
@@ -158,8 +158,8 @@ class TestWeightNormalizationAudit:
     def test_unnormalized_weights_warn_in_simultaneous(self, rng):
         import jax.numpy as jnp
 
-        from libmultiviewnative_tpu.deconv.rl import deconvolve
-        from libmultiviewnative_tpu.deconv.workspace import (
+        from libmultiviewnative_jax.deconv.rl import deconvolve
+        from libmultiviewnative_jax.deconv.workspace import (
             WeightNormalizationWarning,
         )
 
@@ -173,7 +173,7 @@ class TestWeightNormalizationAudit:
 
         import jax.numpy as jnp
 
-        from libmultiviewnative_tpu.deconv.rl import deconvolve
+        from libmultiviewnative_jax.deconv.rl import deconvolve
 
         data = self._data(rng, wscale=1.0)
         psi0 = jnp.full((8, 8, 8), float(jnp.mean(data.views)), jnp.float32)
@@ -184,7 +184,7 @@ class TestWeightNormalizationAudit:
     def test_scalar_weights_checked(self):
         import jax.numpy as jnp
 
-        from libmultiviewnative_tpu.deconv.workspace import (
+        from libmultiviewnative_jax.deconv.workspace import (
             WeightNormalizationWarning,
             check_simultaneous_weights,
         )
